@@ -16,7 +16,7 @@ import torch
 
 from orbslam_in_practice_tpu_torch.config import SlamConfig
 from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu_torch.slam.tracking import LOCAL_MAP_MAX, FusedSteadyStep
+from orbslam_in_practice_tpu_torch.slam.tracking import LOCAL_MAP_MAX, FusedSteadyStep, encode_image
 
 # the step's arguments after the image, packed ids, velocity and last pose
 _TABLE_DTYPES = (
@@ -34,11 +34,6 @@ def bench_config() -> SlamConfig:
     """The configuration the repository's benchmark measures: 640x480,
     512 features over 4 levels, a 16384-slot landmark table."""
     return SlamConfig(n_features=512, n_levels=4, width=640, height=480)
-
-
-def encode_image(img: np.ndarray) -> np.ndarray:
-    """float32 [0, 255] grayscale -> the step's 8.8 fixed-point uint16."""
-    return np.clip(np.asarray(img, np.float32) * 256.0, 0.0, 65535.0).astype(np.uint16)
 
 
 def state_from_numpy(args, device: torch.device | str) -> tuple:

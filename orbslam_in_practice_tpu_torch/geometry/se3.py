@@ -1,11 +1,13 @@
 """SE(3)/SO(3) exponential maps, batched torch.
 
-Port of the part of ``orbslam_in_practice_tpu/geometry/se3.py`` that the
-tracking step uses. Tangent = [rho, phi]: translation first, rotation second.
+Port of the part of ``orbslam_in_practice_tpu/geometry/se3.py`` that
+tracking, initialisation and mapping use. Tangent = [rho, phi]: translation first, rotation second.
 All functions broadcast over leading batch dimensions.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,3 +72,48 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     rho, phi = xi[..., :3], xi[..., 3:]
     t = (_so3_left_jacobian(phi) @ rho[..., None])[..., 0]
     return make_se3(exp_so3(phi), t)
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 3) axis-angle, by atan2 (finite at the
+    identity), with a diagonal-extraction branch near pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    v = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]], dim=-1
+    )
+    sin_t = 0.5 * torch.sqrt(torch.sum(v * v, dim=-1) + 1e-24)
+    theta = torch.atan2(sin_t, cos_t)
+    small = theta < 1e-4
+    scale = torch.where(small, 0.5 + theta * theta / 12.0, theta / (2.0 * torch.clamp(sin_t, min=_EPS)))
+    w_generic = scale[..., None] * v
+    near_pi = theta > math.pi - 1e-3
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis2 = torch.clamp(
+        (diag - cos_t[..., None]) / torch.clamp(1.0 - cos_t[..., None], min=_EPS), min=0.0
+    )
+    sign = torch.where(v >= 0, 1.0, -1.0)
+    w_pi = theta[..., None] * torch.sqrt(axis2) * sign
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) SE3 -> (..., 6) tangent [rho, phi]."""
+    phi = log_so3(T[..., :3, :3])
+    rho = torch.linalg.solve(_so3_left_jacobian(phi), T[..., :3, 3:4])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> its inverse [R^T | -R^T t]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) (or (..., 3))."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    if pts.dim() == T.dim() - 1:  # (..., N, 3) with T (..., 4, 4)
+        return pts @ R.transpose(-1, -2) + t[..., None, :]
+    return (R @ pts[..., None])[..., 0] + t

@@ -38,10 +38,11 @@ def unpack_to_pm1(packed: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(pm1_a: torch.Tensor, pm1_b: torch.Tensor) -> torch.Tensor:
-    """(N, 256) int8 ±1, (M, 256) int8 ±1 -> (N, M) int32 Hamming distances.
+    """(N, 256) int8 ±1, ([B,] M, 256) int8 ±1 -> ([B,] N, M) int32 Hamming
+    distances.
 
     The dot product runs in float32, which is exact for ±1 sums of 256
     terms (TF32 is off package-wide); an int8 product would wrap on the CPU.
     """
-    dot = pm1_a.to(torch.float32) @ pm1_b.to(torch.float32).T
+    dot = pm1_a.to(torch.float32) @ pm1_b.to(torch.float32).transpose(-1, -2)
     return (256 - dot.to(torch.int32)) // 2

@@ -8,7 +8,11 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: kernel A is bit-exact (subtraction, min and max in float32).
 Kernel B's angles agree within 1e-3 rad and its descriptor bits on > 99.5%
 (the kernel sums the moments in another order and rotates the pattern by the
-normalised moments, not by cos/sin of the angle).
+normalised moments, not by cos/sin of the angle). Bundle adjustment on the
+card against the CPU: poses within 1e-3 and points within 1e-3 of their
+depth (``index_add_`` sums in another order on every run). The system on
+the card: state OK after the e2e sequence's first 16 frames, both kernels
+launched, and the map's device tables equal to its host truth.
 """
 
 import numpy as np
@@ -23,7 +27,9 @@ from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms, fast_sco
 from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features, orb_patch_features_plain
 from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits
 from orbslam_in_practice_tpu_torch.ops.orb import orb_pattern
-from orbslam_in_practice_tpu_torch.slam.tracking import FusedSteadyStep
+from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, bundle_adjustment
+from orbslam_in_practice_tpu_torch.slam.tracking import FusedSteadyStep, TrackingState
+from orbslam_in_practice_tpu_torch.system import SlamSystem
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +113,58 @@ def test_fused_step_kernels_match_plain(cuda_device):  # noqa: F811
         got, want = step(*args), plain(*args)
     assert bool(got[5]) and bool(want[5])
     assert (got[1] - want[1]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("n_cams", [2, 70])
+def test_bundle_adjustment_card_matches_cpu(cuda_device, n_cams):  # noqa: F811
+    """The dense (2 cameras) and chunked (70 cameras) Schur paths."""
+    rng = np.random.default_rng(n_cams)
+    n_pts = 200
+    pts = np.stack([rng.uniform(-1, 0.3 * n_cams, n_pts), rng.uniform(-1.5, 1.5, n_pts), rng.uniform(4, 8, n_pts)], -1)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    poses[:, 0, 3] = -0.3 * np.arange(n_cams)
+    obs_cam, obs_point, obs_uv = [], [], []
+    for c in range(n_cams):
+        pc = pts + poses[c, :3, 3]
+        uv = pc[:, :2] / pc[:, 2:3] * 500.0 + [320.0, 240.0]
+        seen = np.nonzero((np.abs(uv[:, 0] - 320) < 320) & (np.abs(uv[:, 1] - 240) < 240))[0]
+        obs_cam += [c] * len(seen)
+        obs_point += list(seen)
+        obs_uv.append(uv[seen] + rng.normal(size=(len(seen), 2)) * 0.5)
+    obs_point = np.asarray(obs_point)
+    start = poses.copy()
+    start[1:, :3, 3] += rng.normal(size=(n_cams - 1, 3)) * 0.01
+    fields = dict(
+        poses=start, points=(pts + rng.normal(size=pts.shape) * 0.05).astype(np.float32),
+        obs_cam=np.asarray(obs_cam), obs_point=obs_point, obs_uv=np.concatenate(obs_uv).astype(np.float32),
+        obs_inv_sigma2=np.ones(len(obs_point), np.float32), obs_mask=np.ones(len(obs_point), bool),
+        point_obs=build_point_obs(obs_point, n_pts, int(np.bincount(obs_point).max())).astype(np.int64),
+        fixed_cam=np.arange(n_cams) < min(2, n_cams - 1),
+        K=np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32),
+    )
+    outs = []
+    for device in ("cpu", cuda_device):
+        prob = BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in fields.items()})
+        outs.append([t.cpu().numpy() for t in bundle_adjustment(prob, iterations=3)])
+    (P_c, X_c, _), (P_g, X_g, _) = outs
+    assert np.abs(P_g - P_c).max() < 1e-3
+    assert np.all(np.abs(X_g - X_c) < 1e-3 * pts[:, 2:3])
+
+
+def test_system_on_card(cuda_device):  # noqa: F811
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, n_points=700, kind="strafe", seed=3)
+    cfg = SlamConfig(n_features=600, n_levels=4, fps=10.0, k_max=64, l_max=8192, enable_loop_closing=False)
+    system = SlamSystem(cfg, device=cuda_device)
+    before = fast_score_nms.launches, orb_patch_features.launches
+    with torch.no_grad():
+        for i in range(seq.n_frames):
+            system.track_monocular(seq.render(i), 0.1 * i)
+    assert system.state == TrackingState.OK and system.map.n_kf_active() >= 3
+    assert fast_score_nms.launches > before[0] and orb_patch_features.launches > before[1]
+    assert system.tracker.n_fused_frames > 0
+    m = system.map
+    for name in ("lm_pos", "lm_valid", "lm_desc_pm1", "lm_normal", "lm_min_dist", "lm_max_dist", "lm_octave",
+                 "kf_pose", "kf_xy", "kf_octave", "kf_angle", "kf_feat_valid", "kf_desc_pm1"):
+        assert getattr(m, name).is_cuda and np.array_equal(getattr(m, name).cpu().numpy(), m.hview(name)), name

@@ -1,6 +1,6 @@
 """Parity of the port's host-side and geometry modules with the JAX
-package: configuration parsing, camera undistortion, the SE(3) exponential
-and the synthetic renderer."""
+package: configuration parsing, camera undistortion, the SE(3) exponential,
+logarithm, inverse and point transform, and the synthetic renderer."""
 
 import dataclasses
 
@@ -56,6 +56,31 @@ def test_exp_se3_matches_jax():
     got = tse3.exp_se3(torch.from_numpy(xi)).numpy()
     assert np.abs(got - want).max() < 1e-6
     assert np.abs(tse3.hat(torch.from_numpy(xi[:, :3])).numpy() - np.asarray(jse3.hat(jnp.asarray(xi[:, :3])))).max() == 0
+
+
+def test_se3_log_inverse_transform_match_jax():
+    """log_so3 (generic, small-angle and near-pi branches), log_se3,
+    se3_inverse and transform_points (one pose and batched poses) against
+    the JAX package, float32, within 1e-5."""
+    rng = np.random.default_rng(2)
+    axis = rng.uniform(0.3, 1.0, size=(48, 3)) * rng.choice([-1.0, 1.0], size=(48, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = rng.uniform(0.01, 3.0, size=48)
+    angle[:4] = 1e-5  # series branch
+    angle[4:8] = np.pi - 5e-4  # diagonal-extraction branch
+    xi = np.concatenate([rng.normal(size=(48, 3)), axis * angle[:, None]], axis=1).astype(np.float32)
+    T = np.array(jse3.exp_se3(jnp.asarray(xi)))
+    Tt = torch.from_numpy(T)
+    for name in ("log_se3", "se3_inverse"):
+        want = np.asarray(getattr(jse3, name)(jnp.asarray(T)))
+        assert np.abs(getattr(tse3, name)(Tt).numpy() - want).max() < 1e-5, name
+    want = np.asarray(jse3.log_so3(jnp.asarray(T[:, :3, :3])))
+    assert np.abs(tse3.log_so3(Tt[:, :3, :3]).numpy() - want).max() < 1e-5
+    pts = rng.normal(size=(20, 3)).astype(np.float32)
+    for poses in (T[9], T[9:12]):
+        want = np.asarray(jse3.transform_points(jnp.asarray(poses), jnp.asarray(pts)))
+        got = tse3.transform_points(torch.from_numpy(poses), torch.from_numpy(pts)).numpy()
+        assert got.shape == want.shape and np.abs(got - want).max() < 1e-5
 
 
 @pytest.mark.parametrize("kind", ["strafe", "rotation"])

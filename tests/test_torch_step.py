@@ -174,10 +174,15 @@ def test_state_from_numpy_contract(scene):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port imports with jax made unimportable, and
+    none pulls in jax or the JAX package."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import orbslam_in_practice_tpu_torch.slam.tracking\n"
-        "import orbslam_in_practice_tpu_torch.bench_state\n"
+        "import importlib, pkgutil, sys; sys.modules['jax'] = None\n"
+        "import orbslam_in_practice_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "[importlib.import_module(n) for n in names]\n"
+        "assert {'orbslam_in_practice_tpu_torch.system', 'orbslam_in_practice_tpu_torch.run_slam',"
+        " 'orbslam_in_practice_tpu_torch.slam.local_mapping', 'orbslam_in_practice_tpu_torch.optim.ba'} <= set(names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'orbslam_in_practice_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -1,0 +1,154 @@
+"""The port's SlamSystem end to end on the CPU, against tests/test_e2e.py's
+gates on the same sequence (strafe, 700 points, seed 3, 40 frames) and
+configuration (tests/test_e2e.py's small_config with loop closing off):
+state OK, >= 2 keyframes, > 50 landmarks, more than half the frames
+tracked, ATE < 0.05; the fused and the unfused flows each under ATE 0.05
+after 24 frames. Trajectory export and ATE evaluation match the JAX
+package's on the same trajectory: ATE within 1e-5, exported numbers within
+1e-6. Unported settings raise NotImplementedError.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam_in_practice_tpu.io import evaluation as jeval
+from orbslam_in_practice_tpu.io import trajectory as jtraj
+from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
+from orbslam_in_practice_tpu_torch import run_slam
+from orbslam_in_practice_tpu_torch.config import SlamConfig
+from orbslam_in_practice_tpu_torch.io import evaluation, trajectory
+from orbslam_in_practice_tpu_torch.slam.tracking import TrackingState, Tracking
+from orbslam_in_practice_tpu_torch.system import SlamSystem
+
+torch.set_num_threads(2)
+
+N_FRAMES = 40
+COMPARE_AT = 24  # tests/test_e2e.py's fused-vs-unfused length
+
+
+def small_config():
+    return SlamConfig(
+        fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480,
+        n_features=600, n_levels=4, fps=10.0, k_max=64, l_max=8192, enable_loop_closing=False,
+    )
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return SyntheticSequence(n_frames=N_FRAMES, n_points=700, kind="strafe", seed=3)
+
+
+def _run(seq, n_frames, fused: bool, snapshot_at: int | None = None):
+    system = SlamSystem(small_config(), device="cpu")
+    system.tracker.use_fused = fused
+    n_tracked, snapshot, paths = 0, None, []
+    for i in range(n_frames):
+        n_tracked += system.track_monocular(seq.render(i), i * 0.1) is not None
+        paths.append((system.tracker.frame_path, system.tracker.frame_keyframe))
+        if i + 1 == snapshot_at:
+            snapshot = (system.state, system.get_trajectory())
+    return system, n_tracked, snapshot, paths
+
+
+@pytest.fixture(scope="module")
+def fused_run(seq):
+    return _run(seq, N_FRAMES, fused=True, snapshot_at=COMPARE_AT)
+
+
+def test_system_initializes_and_tracks(seq, fused_run):
+    system, n_tracked, _, _ = fused_run
+    assert system.state == TrackingState.OK
+    stats = system.map.stats()
+    assert stats["n_kf"] >= 2
+    assert stats["n_lm"] > 50
+    assert n_tracked > seq.n_frames // 2
+    rmse, n_aligned, _ = evaluation.ate_rmse(system.get_trajectory(), seq.gt_centers())
+    assert n_aligned > seq.n_frames // 2
+    assert rmse < 0.05
+    assert system.tracker.n_fused_frames > 0
+    # the device tables equal host truth after a whole run
+    m = system.map
+    for name in ("lm_pos", "lm_valid", "lm_desc_pm1", "lm_normal", "lm_min_dist", "lm_max_dist", "lm_octave",
+                 "kf_pose", "kf_xy", "kf_octave", "kf_angle", "kf_feat_valid", "kf_desc_pm1"):
+        assert np.array_equal(getattr(m, name).numpy(), m.hview(name)), name
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_system_fused_and_unfused_track(seq, fused_run, fused):
+    if fused:
+        state, traj = fused_run[2]
+    else:
+        system, _, _, paths = _run(seq, COMPARE_AT, fused=False)
+        assert {p for p, _ in paths} <= {"init", "unfused"}
+        state, traj = system.state, system.get_trajectory()
+        assert system.tracker.n_fused_frames == 0
+    assert state == TrackingState.OK
+    assert evaluation.ate_rmse(traj, seq.gt_centers())[0] < 0.05
+
+
+def test_frame_paths_account_for_every_fused_launch(fused_run):
+    """Each frame's recorded path: initialisation first, the first frame
+    after it unfused (no velocity yet), and exactly as many frames on a
+    fused path as the fused step ran; the keyframe flags match the
+    local-mapping epochs."""
+    system, _, _, paths = fused_run
+    kinds = [p for p, _ in paths]
+    first = kinds.index("unfused")
+    assert first > 0 and set(kinds[:first]) == {"init"}
+    assert sum(k in ("fused", "fused_fallback") for k in kinds) == system.tracker.n_fused_frames
+    assert sum(kf for _, kf in paths) == system.tracker.mapper.n_epochs > 0
+
+
+def test_trajectory_export_and_ate_match_jax(tmp_path, seq, fused_run):
+    traj = fused_run[0].get_trajectory()
+    got = evaluation.ate_rmse(traj, seq.gt_centers())
+    want = jeval.ate_rmse(traj, seq.gt_centers())
+    assert abs(got[0] - want[0]) < 1e-5 and got[1:] == want[1:]
+    got_se3 = evaluation.ate_rmse(traj, seq.gt_centers(), align_scale=False)[0]
+    assert abs(got_se3 - jeval.ate_rmse(traj, seq.gt_centers(), align_scale=False)[0]) < 1e-5
+    for save_t, save_j, cols in ((trajectory.save_tum, jtraj.save_tum, 8), (trajectory.save_kitti, jtraj.save_kitti, 12)):
+        save_t(str(tmp_path / "port.txt"), traj)
+        save_j(str(tmp_path / "jax.txt"), traj)
+        a = np.loadtxt(tmp_path / "port.txt")
+        b = np.loadtxt(tmp_path / "jax.txt")
+        assert a.shape == b.shape == (sum(T is not None for _, _, T in traj), cols)
+        assert np.abs(a - b).max() < 1e-6
+    fused_run[0].save_trajectory_tum(str(tmp_path / "system.txt"))
+    trajectory.save_tum(str(tmp_path / "direct.txt"), traj)
+    assert (tmp_path / "system.txt").read_text() == (tmp_path / "direct.txt").read_text()
+
+
+@pytest.mark.parametrize("field", ["enable_loop_closing", "async_mapping"])
+def test_unported_settings_raise(field):
+    cfg = dataclasses.replace(small_config(), **{field: True})
+    with pytest.raises(NotImplementedError):
+        Tracking(cfg)
+
+
+def test_lost_with_a_grown_map_raises(seq, fused_run):
+    """Relocalisation is not ported: LOST with more than 5 keyframes raises
+    instead of degrading quietly; with a young map the tracker resets."""
+    system = SlamSystem(small_config(), device="cpu")
+    system.tracker.state = TrackingState.LOST
+    assert system.track_monocular(seq.render(0), 0.0) is None
+    assert system.state == TrackingState.NOT_INITIALIZED
+    grown = fused_run[0]
+    assert grown.map.n_kf_active() > 5
+    grown.tracker.state = TrackingState.LOST
+    try:
+        with pytest.raises(NotImplementedError, match="relocalization"):
+            grown.track_monocular(seq.render(N_FRAMES - 1), 9.9)
+    finally:
+        grown.tracker.state = TrackingState.OK
+
+
+def test_run_slam_cli(capsys):
+    out = run_slam.main(["--synthetic", "--frames", "3", "--device", "cpu"])
+    assert out["frames"] == 3 and out["frame_count"]["init"] == 3 and out["device"] == "cpu"
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("{")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            run_slam.main(["--synthetic", "--frames", "3"])

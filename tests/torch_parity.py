@@ -47,6 +47,21 @@ def frame_to_torch(f) -> Frame:
     return Frame(**{name: torch.from_numpy(a) for name, a in arrays.items()})
 
 
+def map_to_torch(jmap, device="cpu"):
+    """A JAX package SlamMap -> the port's SlamMap with the same state
+    (host tables, counters, free lists; covisibility rebuilt)."""
+    from orbslam_in_practice_tpu_torch.slam.map import _COUNTERS, TABLES, SlamMap
+
+    tables = {name: np.array(jmap.hview(name)) for name in TABLES}
+    for name in _COUNTERS + ("n_kf", "n_lm", "next_kf_id"):
+        tables[name] = np.array(getattr(jmap, name))
+    tables["next_lm_uid"] = jmap._next_lm_uid
+    tables["kf_free"] = list(jmap._kf_free)
+    tables["lm_free"] = list(jmap._lm_free)
+    tables["lm_free_pending"] = list(jmap._lm_free_pending)
+    return SlamMap.from_numpy(tables, device)
+
+
 def wrapped_angle_error(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """|a - b| wrapped to [0, pi]."""
     return np.abs((a - b + np.pi) % (2 * np.pi) - np.pi)
