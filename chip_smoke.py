@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``orbslam_in_practice_tpu_torch`` from
-``csrc/``, checks each against its plain PyTorch version on the card at the
-shapes the tracking step gives it, runs the TUM1 extractor (1000 features,
-8 levels, radtan distortion), then drives the fused steady-state tracking
+``csrc/``, checks each against its plain PyTorch version on the card in
+one launch over every pyramid level, at the shapes the extractors give it
+(kernel A at the bench frame's 4 levels and a TUM1 frame's 8; kernel B at
+512, 800 and 1600 keypoints over the 4 bench levels and 1000 over TUM1's
+8), and prints its device time beside its bound. It runs the TUM1
+extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
 feeding pose and velocity forward. Last it runs the whole system,
@@ -14,7 +17,8 @@ feeding pose and velocity forward. Last it runs the whole system,
 (``python -m orbslam_in_practice_tpu_torch.run_slam --synthetic``'s
 configuration: 800 features, 4 levels, 256 keyframe and 16384 landmark
 slots): initialisation, tracking, local mapping, and the ATE against the
-JAX package's figures. It prints times in microseconds per kernel call and
+JAX package's figures; in both runs each kernel must launch once per
+extraction. It prints times in microseconds per kernel launch and
 milliseconds per frame and per keyframe epoch, one JSON line describing the
 kernels (launches summed over the tracking step's and the system's runs),
 and last ``{"ok": true, "device": {...}}``.
@@ -55,124 +59,124 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device milliseconds per call of ``fn``, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bench_pyramid(device):
-    """The 4 pyramid levels of frame 1 of the benchmark scene, on ``device``."""
-    import torch
-
-    from orbslam_in_practice_tpu_torch.bench_state import bench_config
-    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
-    from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
-
-    cfg = bench_config()
-    seq = SyntheticSequence(
-        n_frames=2, n_points=900, width=cfg.width, height=cfg.height,
-        fx=cfg.fx, fy=cfg.fy, kind="strafe", seed=0,
-    )
-    img = torch.from_numpy(seq.render(1)).to(device)
-    return build_pyramid(img, cfg.n_levels, cfg.scale_factor), cfg
+def extraction_counter(*extractors) -> list:
+    """A list that grows by one at every call of any of ``extractors``."""
+    calls = []
+    for extractor in extractors:
+        extractor.register_forward_hook(lambda *_: calls.append(1))
+    return calls
 
 
 def phase_fast(device) -> dict:
-    """Kernel A against nms3x3(fast_score) on the card: bit-exact."""
+    """Kernel A in one launch over every pyramid level (the bench frame's 4,
+    a TUM1 frame's 8) and over one 1241x376 KITTI-size frame, against
+    nms3x3(fast_score) on the card: bit-exact. Times at the bench levels."""
     import torch
 
+    from orbslam_in_practice_tpu_torch.bench_kernels import (
+        bench_levels, bound, events_ms, fast_work, launch_ms, profiled_ms, tum1_levels,
+    )
     from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
-    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms, fast_score_nms_plain
+    from orbslam_in_practice_tpu_torch.ops.cuda_fast import (
+        fast_score_nms, fast_score_nms_levels, fast_score_nms_levels_plain,
+    )
 
-    levels, _ = bench_pyramid(device)
     kitti = SyntheticSequence(n_frames=2, n_points=900, width=1241, height=376, seed=1)
-    images = levels + [torch.from_numpy(kitti.render(1)).to(device)]
-    ms = plain_ms = worst = 0.0
-    for img in images:
-        got, want = fast_score_nms(img), fast_score_nms_plain(img)
-        check(torch.equal(got, want), f"kernel A differs from its plain version at {tuple(img.shape)}")
-        worst = max(worst, float((got - want).abs().max()))
-        check(int((want > 0).sum()) > 100, f"too few FAST maxima at {tuple(img.shape)}")
-        k = cuda_ms(lambda: fast_score_nms(img), 200)
-        p = cuda_ms(lambda: fast_score_nms_plain(img), 50)
-        print(f"kernel A fast_score_nms {tuple(img.shape)}: {k * 1e3:.1f} us, plain {p * 1e3:.1f} us, bit-exact")
-        if img is not images[-1]:
-            ms, plain_ms = ms + k, plain_ms + p
-    print(f"kernel A over the 4 bench levels: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    cases = [("bench 4 levels", bench_levels(device)), ("TUM1 8 levels", tum1_levels(device)),
+             ("KITTI 1 level", [torch.from_numpy(kitti.render(1)).to(device)])]
+    out = {}
+    err = 0.0
+    for label, levels in cases:
+        before = fast_score_nms.launches
+        got = fast_score_nms_levels(levels)
+        torch.cuda.synchronize()
+        check(fast_score_nms.launches == before + 1, f"kernel A took more than one launch for {label}")
+        want = fast_score_nms_levels_plain(levels)
+        for g, w in zip(got, want):
+            err = max(err, float((g - w).abs().max()))
+            check(torch.equal(g, w), f"kernel A differs from its plain version at {tuple(w.shape)}, {label}")
+            check(int((w > 0).sum()) > 30, f"too few FAST maxima at {tuple(w.shape)}, {label}")
+        k = profiled_ms(lambda: fast_score_nms_levels(levels), "fast_score_nms_kernel")
+        ev = launch_ms(lambda: fast_score_nms_levels(levels))
+        k = k if math.isfinite(k) else ev  # the profiler saw no kernel: events instead
+        wrap = events_ms(lambda: fast_score_nms_levels(levels), 200)
+        p = events_ms(lambda: fast_score_nms_levels_plain(levels), 20)
+        b_ms, b_by = bound(*fast_work(levels))
+        print(f"kernel A fast_score_nms_levels, {label} {[tuple(i.shape) for i in levels]}: one launch, "
+              f"device {k * 1e3:.2f} us (events around it {ev * 1e3:.2f}), wrapper {wrap * 1e3:.2f} us/call, "
+              f"plain {p * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / k:.0%} of it), bit-exact")
+        if not out:
+            out = {"ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return {"max_abs_err": err, **out}
 
 
-def phase_patch(device, n_features: int | None = None) -> dict:
-    """Kernel B against ic_angle + gaussian_blur7 + brief_descriptors on the
-    card, at the real keypoints of each bench level: by default at the
-    bench's budgets, else at those of ``n_features`` (the system's tracking
-    extractor asks for 800, its initialisation extractor for 1600)."""
+def phase_patch(device, label: str, levels: list, n_features: int) -> dict:
+    """Kernel B in one launch over the keypoints of every level, against
+    ic_angle + gaussian_blur7 + brief_descriptors + unpack_to_pm1 on the
+    card, at the real keypoints of ``n_features`` over ``levels``: angles
+    within ANGLE_TOL, bits within BIT_TOL, the ±1 rows equal to the
+    kernel's own words unpacked."""
     import torch
 
-    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms_plain
-    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features, orb_patch_features_plain
-    from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits
-    from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, orb_pattern, select_keypoints
+    from orbslam_in_practice_tpu_torch.bench_kernels import (
+        bound, events_ms, keypoints, launch_ms, patch_work, profiled_ms,
+    )
+    from orbslam_in_practice_tpu_torch.ops.cuda_patch import (
+        orb_patch_features, orb_patch_features_levels, orb_patch_features_levels_plain,
+    )
+    from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits, unpack_to_pm1
+    from orbslam_in_practice_tpu_torch.ops.orb import orb_pattern
 
-    levels, cfg = bench_pyramid(device)
-    budgets = level_budgets(n_features or cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    yx, start, valid = keypoints(levels, n_features)
     pattern = orb_pattern(device)
-    worst = 0.0
-    ms = plain_ms = 0.0
-    for img, budget in zip(levels, budgets):
-        yx, _, valid = select_keypoints(fast_score_nms_plain(img), budget)
-        ang_k, desc_k = orb_patch_features(img, yx, pattern)
-        ang_p, desc_p = orb_patch_features_plain(img, yx, pattern)
-        check(bool(torch.isfinite(ang_k).all()), "kernel B angle not finite")
-        v = valid
-        d = torch.remainder(ang_k[v] - ang_p[v] + math.pi, 2 * math.pi) - math.pi
-        err = float(d.abs().max())
-        bits = float((unpack_bits(desc_k[v]) != unpack_bits(desc_p[v])).float().mean())
-        check(err < ANGLE_TOL, f"kernel B angle error {err} at {tuple(img.shape)}")
-        check(bits < BIT_TOL, f"kernel B bit mismatch {bits} at {tuple(img.shape)}")
-        worst = max(worst, err)
-        k = cuda_ms(lambda: orb_patch_features(img, yx, pattern), 200)
-        p = cuda_ms(lambda: orb_patch_features_plain(img, yx, pattern), 50)
-        ms, plain_ms = ms + k, plain_ms + p
-        print(
-            f"kernel B orb_patch_features {tuple(img.shape)} x {budget} keypoints ({int(v.sum())} valid): "
-            f"{k * 1e3:.1f} us, plain {p * 1e3:.1f} us, angle err {err:.3g} rad (tolerance {ANGLE_TOL}), "
-            f"bit mismatch {bits:.4%} (tolerance {BIT_TOL:.1%})"
-        )
-    print(f"kernel B over the 4 bench levels at {sum(budgets)} keypoints: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    before = orb_patch_features.launches
+    ang_k, desc_k, pm1_k = orb_patch_features_levels(levels, yx, start, pattern)
+    torch.cuda.synchronize()
+    check(orb_patch_features.launches == before + 1, f"kernel B took more than one launch for {label}")
+    ang_p, desc_p, _ = orb_patch_features_levels_plain(levels, yx, start, pattern)
+    check(bool(torch.isfinite(ang_k).all()), "kernel B angle not finite")
+    check(torch.equal(pm1_k, unpack_to_pm1(desc_k)), f"kernel B's +-1 rows are not its words unpacked, {label}")
+    v = valid
+    d = torch.remainder(ang_k[v] - ang_p[v] + math.pi, 2 * math.pi) - math.pi
+    err = float(d.abs().max())
+    bits = float((unpack_bits(desc_k[v]) != unpack_bits(desc_p[v])).float().mean())
+    check(err < ANGLE_TOL, f"kernel B angle error {err}, {label}")
+    check(bits < BIT_TOL, f"kernel B bit mismatch {bits}, {label}")
+    n = yx.shape[0]
+    k = profiled_ms(lambda: orb_patch_features_levels(levels, yx, start, pattern), "orb_patch_kernel")
+    ev = launch_ms(lambda: orb_patch_features_levels(levels, yx, start, pattern))
+    k = k if math.isfinite(k) else ev  # the profiler saw no kernel: events instead
+    wrap = events_ms(lambda: orb_patch_features_levels(levels, yx, start, pattern), 200)
+    p = events_ms(lambda: orb_patch_features_levels_plain(levels, yx, start, pattern), 20)
+    b_ms, b_by = bound(*patch_work(levels, n))
+    print(
+        f"kernel B orb_patch_features_levels, {label}: {n} keypoints ({int(v.sum())} valid) in one launch, "
+        f"device {k * 1e3:.2f} us (events around it {ev * 1e3:.2f}), wrapper {wrap * 1e3:.2f} us/call, "
+        f"plain {p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / k:.0%} of it), angle err {err:.3g} rad "
+        f"(tolerance {ANGLE_TOL}), bit mismatch {bits:.4%} (tolerance {BIT_TOL:.1%}), +-1 rows exact"
+    )
+    return {"max_abs_err": err, "ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def phase_tum1(device) -> None:
     """The TUM1 extractor (1000 features, 8 levels, distortion) on a
-    rendered, distorted frame: kernel path finite and equal to the plain
-    path's keypoints at level 0."""
+    rendered, distorted frame: one launch of each kernel, kernel path finite
+    and equal to the plain path's keypoints at level 0."""
     import torch
 
-    from orbslam_in_practice_tpu_torch.config import load_config
+    from orbslam_in_practice_tpu_torch.bench_kernels import tum1_config, tum1_image
     from orbslam_in_practice_tpu_torch.frontend.orb import ORBExtractor
-    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
+    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
 
-    cfg = load_config(str(ROOT / "configs" / "TUM1.yaml"))
-    seq = SyntheticSequence(
-        n_frames=2, n_points=900, width=cfg.width, height=cfg.height,
-        fx=cfg.fx, fy=cfg.fy, seed=0, dist=cfg.cam.dist,
-    )
-    img = torch.from_numpy(seq.render(1)).to(device)
+    cfg = tum1_config()
+    img = tum1_image(device)
     args = (cfg.n_features, cfg.scale_factor, cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast)
+    before = fast_score_nms.launches, orb_patch_features.launches
     fk = ORBExtractor(*args, cam=cfg.cam).to(device)(img)
+    check((fast_score_nms.launches, orb_patch_features.launches) == (before[0] + 1, before[1] + 1),
+          "the TUM1 extractor did not launch each kernel exactly once")
     fp = ORBExtractor(*args, cam=cfg.cam, use_kernels=False).to(device)(img)
     for name in ("xy", "xy_raw", "angle", "response"):
         check(bool(torch.isfinite(getattr(fk, name)).all()), f"TUM1 {name} not finite")
@@ -182,7 +186,8 @@ def phase_tum1(device) -> None:
     check(torch.equal(fk.xy[lvl0], fp.xy[lvl0]), "TUM1 level-0 undistorted keypoints differ")
     n_valid = int(fk.valid.sum())
     check(n_valid > 500, f"TUM1 extractor found only {n_valid} keypoints")
-    print(f"TUM1 extractor: {fk.n_features} slots, {n_valid} valid, level-0 keypoints equal on both paths")
+    print(f"TUM1 extractor: {fk.n_features} slots over {cfg.n_levels} levels, {n_valid} valid, one launch of "
+          "each kernel, level-0 keypoints equal on both paths")
 
 
 def run_chain(step, args, images, device):
@@ -212,6 +217,7 @@ def phase_step(device) -> dict:
     cfg = bench_config()
     step, args, images, seq = build_bench_state(cfg, n_images=len(REFERENCE_CENTRE_ERR), device=device)
     plain = FusedSteadyStep(cfg, use_kernels=False).to(device)
+    calls = extraction_counter(step.extractor)
 
     with torch.no_grad():
         fast_score_nms.launches = 0
@@ -220,7 +226,8 @@ def phase_step(device) -> dict:
         launches = {"fast_score_nms": fast_score_nms.launches, "orb_patch_features": orb_patch_features.launches}
         tracked_plain = run_chain(plain, args, images, device)
     for name, n in launches.items():
-        check(n > 0, f"the tracking step never launched {name}")
+        check(n == len(calls) == len(images), f"the tracking step launched {name} {n} times for {len(calls)} "
+              f"extractions of {len(images)} frames")
 
     errs = []
     for i, ((T, ok), (Tp, okp)) in enumerate(zip(tracked, tracked_plain)):
@@ -234,7 +241,8 @@ def phase_step(device) -> dict:
         check(diff < POSE_TOL, f"frame {1 + i} kernel and plain Tcw differ by {diff}")
         errs.append(err)
     print(f"fused step: {len(REFERENCE_CENTRE_ERR)} frames tracked; camera-centre error per frame "
-          f"{', '.join(f'{e:.5f}' for e in errs)} (bound: twice the JAX error), launches {launches}")
+          f"{', '.join(f'{e:.5f}' for e in errs)} (bound: twice the JAX error), launches {launches} "
+          f"for {len(calls)} extractions")
 
     with torch.no_grad():
         times = {}
@@ -255,8 +263,8 @@ def phase_system(device) -> dict:
     """The port's SlamSystem from frame 0 of the 60-frame synthetic sequence
     on the kernel path: initialisation, fused and unfused tracking, one
     local-mapping epoch per keyframe. Gates: final state OK, tracked frames
-    and ATE against the JAX package's run, both kernels launched, at least
-    one frame through the fused step."""
+    and ATE against the JAX package's run, each kernel launched once per
+    extraction, at least one frame through the fused step."""
     import torch
 
     from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
@@ -267,6 +275,7 @@ def phase_system(device) -> dict:
 
     seq = SyntheticSequence(n_frames=SYSTEM_FRAMES)
     system = SlamSystem(synthetic_config(), device=device)
+    calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
     with torch.no_grad():
         fast_score_nms.launches = 0
         orb_patch_features.launches = 0
@@ -284,14 +293,16 @@ def phase_system(device) -> dict:
     print(f"system: {out['fused_frames']} frames through the fused step")
     print(f"system keyframe epochs: {out['epochs']}, ms/epoch: "
           + ", ".join(f"{k} {v:.1f}" for k, v in st.items()) + f", total {sum(st.values()):.1f}")
-    print(f"system kf_desc_pm1 on the device: {tuple(desc.shape)} {desc.dtype}, {desc_mb:.1f} MB; launches {launches}")
+    print(f"system kf_desc_pm1 on the device: {tuple(desc.shape)} {desc.dtype}, {desc_mb:.1f} MB; launches {launches} "
+          f"for {len(calls)} extractions")
     check(out["state"] == "OK", f"system ended in state {out['state']}")
     need = REFERENCE_SYSTEM_TRACKED - 2
     check(out["tracked"] >= need, f"system tracked {out['tracked']} frames, fewer than {need}")
     bound = max(2.0 * REFERENCE_SYSTEM_ATE, 0.05)
     check(out["ate_rmse"] < bound, f"system ATE {out['ate_rmse']} not under {bound}")
     for name, count in launches.items():
-        check(count > 0, f"the system never launched {name}")
+        check(count == len(calls) >= SYSTEM_FRAMES, f"the system launched {name} {count} times for "
+              f"{len(calls)} extractions of {SYSTEM_FRAMES} frames")
     check(out["fused_frames"] > 0, "no frame went through the fused step")
     return launches
 
@@ -303,6 +314,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from orbslam_in_practice_tpu_torch.bench_kernels import bench_levels, tum1_config, tum1_levels
+    from orbslam_in_practice_tpu_torch.bench_state import bench_config
     from orbslam_in_practice_tpu_torch.ops import cuda_build
     from orbslam_in_practice_tpu_torch.run_slam import synthetic_config
 
@@ -323,11 +336,15 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     a = phase_fast(device)
-    b = phase_patch(device)
-    # the system's tracking and initialisation extractors
-    n_features = synthetic_config().n_features
-    for n in (n_features, 2 * n_features):
-        b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, n_features=n)["max_abs_err"])
+    # the bench's extractor, the system's tracking and initialisation
+    # extractors, and TUM1's; the JSON line reports the tracking extractor
+    bench, tum1 = bench_levels(device), tum1_levels(device)
+    n_track = synthetic_config().n_features
+    b = phase_patch(device, f"bench 4 levels, {n_track} features", bench, n_track)
+    for label, levels, n in ((f"bench 4 levels, {bench_config().n_features} features", bench, bench_config().n_features),
+                             (f"bench 4 levels, {2 * n_track} features", bench, 2 * n_track),
+                             (f"TUM1 8 levels, {tum1_config().n_features} features", tum1, tum1_config().n_features)):
+        b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, label, levels, n)["max_abs_err"])
     phase_tum1(device)
     step_launches = phase_step(device)
     system_launches = phase_system(device)

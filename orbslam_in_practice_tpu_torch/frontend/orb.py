@@ -1,9 +1,11 @@
 """ORBExtractor: the multi-scale ORB pipeline as an ``nn.Module``.
 
-Port of ``orbslam_in_practice_tpu/frontend/orb.py``. Per level: FAST score
-+ 3x3 NMS (kernel A) -> grid-uniform top-k -> IC angle + in-patch blur +
-rotated BRIEF (kernel B). Keypoint coordinates are scaled to level 0 and
-undistorted. All shapes are static (per-level budgets).
+Port of ``orbslam_in_practice_tpu/frontend/orb.py``: the pyramid, then
+FAST score + 3x3 NMS over every level in one launch (kernel A), grid-uniform
+top-k per level, and IC angle + in-patch blur + rotated BRIEF over every
+level's keypoints in one launch (kernel B), which also writes the ±1 rows.
+Keypoint coordinates are scaled to level 0 and undistorted. All shapes are
+static (per-level budgets); levels with a budget of 0 are skipped.
 
 ``use_kernels=False`` runs the plain PyTorch versions of both kernels in
 place of their wrappers; it exists to time and compare the plain path on
@@ -18,12 +20,11 @@ from torch import nn
 
 from orbslam_in_practice_tpu_torch.frontend.frame import Frame
 from orbslam_in_practice_tpu_torch.geometry.camera import CameraIntrinsics, undistort_points
-from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms, fast_score_nms_plain
+from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms_levels, fast_score_nms_levels_plain
 from orbslam_in_practice_tpu_torch.ops.cuda_patch import (
-    orb_patch_features,
-    orb_patch_features_plain,
+    orb_patch_features_levels,
+    orb_patch_features_levels_plain,
 )
-from orbslam_in_practice_tpu_torch.ops.hamming import unpack_to_pm1
 from orbslam_in_practice_tpu_torch.ops.image import build_pyramid, pyramid_taps
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, orb_pattern, select_keypoints
 
@@ -50,10 +51,17 @@ class ORBExtractor(nn.Module):
         self.min_th = min_th_fast
         self.use_kernels = use_kernels
         self.budgets = level_budgets(n_features, n_levels, scale_factor)
+        self.levels = [lvl for lvl, budget in enumerate(self.budgets) if budget > 0]
+        kept = [self.budgets[lvl] for lvl in self.levels]
+        self.level_start = np.concatenate([[0], np.cumsum(kept)]).tolist()
+        octave = np.repeat(np.array(self.levels, np.int32), kept)
+        scale = np.repeat(np.array([scale_factor**lvl for lvl in self.levels], np.float32), kept)
         # per-octave information weights 1 / scale^(2 * level) for pose optimisation
         level_sigma2 = np.array([(scale_factor**i) ** 2 for i in range(n_levels)], np.float32)
         self.register_buffer("pattern", orb_pattern())
         self.register_buffer("inv_level_sigma2", torch.from_numpy(1.0 / level_sigma2))
+        self.register_buffer("octave", torch.from_numpy(octave))
+        self.register_buffer("kp_scale", torch.from_numpy(scale)[:, None])
         self.undistort = cam is not None and cam.has_distortion
         if self.undistort:
             self.register_buffer("K", cam.K())
@@ -70,38 +78,32 @@ class ORBExtractor(nn.Module):
 
     def forward(self, image: torch.Tensor) -> Frame:
         """image: (H, W) float32 grayscale in [0, 255] -> Frame."""
-        levels = build_pyramid(image, self.n_levels, self.scale_factor, self._pyramid_taps(image))
-        raws, octs, angs, resps, valids, descs = [], [], [], [], [], []
-        for lvl, img_l in enumerate(levels):
-            budget = self.budgets[lvl]
-            if budget <= 0:
-                continue
-            if self.use_kernels:
-                score = fast_score_nms(img_l)
-            else:
-                score = fast_score_nms_plain(img_l)
-            yx, resp, valid = select_keypoints(score, budget, self.ini_th, self.min_th)
-            if self.use_kernels:
-                ang, desc = orb_patch_features(img_l, yx, self.pattern)
-            else:
-                ang, desc = orb_patch_features_plain(img_l, yx, self.pattern)
-            s = self.scale_factor**lvl
-            raws.append(torch.stack([yx[:, 1].float(), yx[:, 0].float()], dim=-1) * s)
-            octs.append(torch.full((budget,), lvl, dtype=torch.int32, device=image.device))
-            angs.append(ang)
-            resps.append(resp)
-            valids.append(valid)
-            descs.append(desc)
-        xy_raw = torch.cat(raws)
+        pyramid = build_pyramid(image, self.n_levels, self.scale_factor, self._pyramid_taps(image))
+        levels = [pyramid[lvl] for lvl in self.levels]
+        if self.use_kernels:
+            scores = fast_score_nms_levels(levels)
+        else:
+            scores = fast_score_nms_levels_plain(levels)
+        picks = [
+            select_keypoints(score, self.budgets[lvl], self.ini_th, self.min_th)
+            for score, lvl in zip(scores, self.levels)
+        ]
+        yx = torch.cat([p[0] for p in picks])
+        if self.use_kernels:
+            angle, desc_packed, desc_pm1 = orb_patch_features_levels(levels, yx, self.level_start, self.pattern)
+        else:
+            angle, desc_packed, desc_pm1 = orb_patch_features_levels_plain(
+                levels, yx, self.level_start, self.pattern
+            )
+        xy_raw = yx.flip(-1).float() * self.kp_scale
         xy = undistort_points(self.K, self.dist, xy_raw) if self.undistort else xy_raw
-        desc_packed = torch.cat(descs)
         return Frame(
             xy=xy,
             xy_raw=xy_raw,
-            octave=torch.cat(octs),
-            angle=torch.cat(angs),
-            response=torch.cat(resps),
-            valid=torch.cat(valids),
+            octave=self.octave.clone(),
+            angle=angle,
+            response=torch.cat([p[1] for p in picks]),
+            valid=torch.cat([p[2] for p in picks]),
             desc_packed=desc_packed,
-            desc_pm1=unpack_to_pm1(desc_packed),
+            desc_pm1=desc_pm1,
         )

@@ -27,10 +27,11 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/*.cu: pointers (and the stream) as void*, sizes as int
+# C signatures of csrc/*.cu: pointers (host arrays of them, and the stream)
+# as void*, counts as int
 _SIGNATURES = {
-    "fast_score_nms": (_P, _P, _I, _I, _P),
-    "orb_patch_features": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P),
+    "fast_score_nms_levels": (_P, _P, _P, _I, _P),
+    "orb_patch_features_levels": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -69,13 +70,21 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The package's kernel library, built on first call, with its C entry
+    points declared."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def host_array(ctype, values) -> ctypes.Array:
+    """``values`` as a ctypes array in host memory (a C entry point's
+    per-level pointers, shapes or prefix sums)."""
+    values = list(values)
+    return (ctype * len(values))(*values)
 
 
 def check_cuda_tensor(t, name: str, dtype, shape: tuple) -> None:

@@ -134,13 +134,13 @@ def brief_descriptors(
         pattern = orb_pattern(img_blur.device)
     size = 2 * DESC_R + 1
     n = yx.shape[0]
-    flat = _gather_patches(img_blur, yx, DESC_R).reshape(n, -1)  # (N, 39*39)
+    flat = _gather_patches(img_blur, yx, DESC_R).reshape(n, size * size)
     ca, sa = torch.cos(angle)[:, None, None], torch.sin(angle)[:, None, None]
     px, py = pattern[None, :, :, 0], pattern[None, :, :, 1]  # (1, 256, 2)
     rx = torch.round(px * ca - py * sa).to(torch.int64).clamp(-DESC_R, DESC_R)
     ry = torch.round(px * sa + py * ca).to(torch.int64).clamp(-DESC_R, DESC_R)
     idx = (ry + DESC_R) * size + (rx + DESC_R)  # (N, 256, 2)
-    vals = torch.gather(flat, 1, idx.reshape(n, -1)).reshape(n, 256, 2)
+    vals = torch.gather(flat, 1, idx.reshape(n, 512)).reshape(n, 256, 2)
     return pack_bits((vals[..., 0] < vals[..., 1]).to(torch.uint8))
 
 

@@ -6,9 +6,9 @@
 Default: tracks the benchmark scene's frames (as ``chip_smoke.py`` does) and
 prints ms/frame by the host clock around synchronised runs; then, under
 ``torch.profiler``, host and device ms/frame per stage span of the step, the
-device's busy share of the profiled window, the device time of each launch
-of the package's own kernels, and the operators with the most host and
-device time.
+device's busy share of the profiled window, the device time per launch of
+the package's own kernels (one launch of each per frame), and the operators
+with the most host and device time.
 
 ``--system``: runs ``SlamSystem`` on the synthetic sequence of
 ``run_slam --synthetic`` once by the host clock (ms per frame kind and per
@@ -144,12 +144,10 @@ def main(argv=None) -> None:
     print(f"profiled: {window_ms / n:.2f} ms/frame host, {len(kernels) / n:.0f} kernels and "
           f"{kernel_ms / n:.3f} ms of kernel time per frame, device busy {kernel_ms / window_ms:.1%}")
     for name in KERNELS:
-        mine = sorted((e for e in kernels if name in e.name), key=lambda e: e.time_range.start)
-        per = len(mine) // n  # launches per frame, one per pyramid level
-        if per:
-            us = [sum(e.time_range.elapsed_us() for e in mine[j::per]) / n for j in range(per)]
-            print(f"{name}: {per} launches per frame; device us per launch, level 0 first: "
-                  + ", ".join(f"{u:.2f}" for u in us))
+        us = [e.time_range.elapsed_us() for e in kernels if name in e.name]
+        if us:  # one launch per frame, over every pyramid level
+            print(f"{name}: {len(us) / n:.0f} launches per frame; device us per launch: mean "
+                  f"{sum(us) / len(us):.2f}, min {min(us):.2f}, max {max(us):.2f}")
     print("span                  host ms/frame  kernel ms/frame")
     for e in events:
         if e.key in SPANS and e.device_type == DeviceType.CPU:

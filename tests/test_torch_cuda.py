@@ -8,7 +8,9 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: kernel A is bit-exact (subtraction, min and max in float32).
 Kernel B's angles agree within 1e-3 rad and its descriptor bits on > 99.5%
 (the kernel sums the moments in another order and rotates the pattern by the
-normalised moments, not by cos/sin of the angle). Bundle adjustment on the
+normalised moments, not by cos/sin of the angle); its ±1 rows equal
+``unpack_to_pm1`` of its words exactly. Each kernel runs once over every
+pyramid level: the bench's 4 levels of a 640x480 frame and TUM1's 8. Bundle adjustment on the
 card against the CPU: poses within 1e-3 and points within 1e-3 of their
 depth (``index_add_`` sums in another order on every run). The system on
 the card: state OK after the e2e sequence's first 16 frames, both kernels
@@ -23,10 +25,21 @@ from torch_parity import SMALL, cuda_device, rendered_frame, wrapped_angle_error
 from orbslam_in_practice_tpu_torch.bench_state import build_bench_state
 from orbslam_in_practice_tpu_torch.config import SlamConfig, load_config
 from orbslam_in_practice_tpu_torch.frontend.orb import ORBExtractor
-from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms, fast_score_nms_plain
-from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features, orb_patch_features_plain
-from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits
-from orbslam_in_practice_tpu_torch.ops.orb import orb_pattern
+from orbslam_in_practice_tpu_torch.ops.cuda_fast import (
+    MAX_LEVELS,
+    fast_score_nms,
+    fast_score_nms_levels,
+    fast_score_nms_plain,
+)
+from orbslam_in_practice_tpu_torch.ops.cuda_patch import (
+    orb_patch_features,
+    orb_patch_features_levels,
+    orb_patch_features_levels_plain,
+    orb_patch_features_plain,
+)
+from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits, unpack_to_pm1
+from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
+from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, orb_pattern, select_keypoints
 from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, bundle_adjustment
 from orbslam_in_practice_tpu_torch.slam.tracking import FusedSteadyStep, TrackingState
 from orbslam_in_practice_tpu_torch.system import SlamSystem
@@ -83,6 +96,66 @@ def test_patch_kernel_matches_plain(cuda_device, shape, n):  # noqa: F811
     assert (bits_k != bits_p).mean() < BIT_TOL
 
 
+def _pyramid(device, n_levels):
+    """The pyramid of a rendered 640x480 frame: 4 levels as the bench's, 8 as TUM1's."""
+    img = torch.from_numpy(rendered_frame(640, 480, seed=2)).to(device)
+    return build_pyramid(img, n_levels, 1.2)
+
+
+@pytest.mark.parametrize("n_levels", [4, 8])
+def test_fast_levels_kernel_bit_exact(cuda_device, n_levels):  # noqa: F811
+    levels = _pyramid(cuda_device, n_levels)
+    before = fast_score_nms.launches
+    got = fast_score_nms_levels(levels)
+    torch.cuda.synchronize()
+    assert fast_score_nms.launches == before + 1
+    for img, score in zip(levels, got):
+        assert score.shape == img.shape and score.is_contiguous()
+        assert torch.equal(score, fast_score_nms_plain(img))
+
+
+def test_fast_levels_kernel_rejects_more_than_max_levels(cuda_device):  # noqa: F811
+    levels = _pyramid(cuda_device, MAX_LEVELS + 1)
+    with pytest.raises(ValueError):
+        fast_score_nms_levels(levels)
+
+
+@pytest.mark.parametrize("n_features", [512, 800, 1600])
+def test_patch_levels_kernel_matches_plain(cuda_device, n_features):  # noqa: F811
+    """The keypoints of the bench's 4 levels, each level's first 4 rows moved
+    to its 19 px border and its last row to (0, 0), as padding rows are."""
+    levels = _pyramid(cuda_device, 4)
+    yxs = []
+    for img, budget in zip(levels, level_budgets(n_features, 4, 1.2)):
+        yx = select_keypoints(fast_score_nms_plain(img), budget)[0].clone()
+        h, w = img.shape
+        yx[:4] = torch.tensor([[19, 19], [h - 20, w - 20], [19, w - 20], [h - 20, 19]], dtype=torch.int32)
+        yx[-1] = 0
+        yxs.append(yx)
+    yx = torch.cat(yxs)
+    start = np.concatenate([[0], np.cumsum([len(y) for y in yxs])]).tolist()
+    pattern = orb_pattern(cuda_device)
+    before = orb_patch_features.launches
+    ang_k, desc_k, pm1_k = orb_patch_features_levels(levels, yx, start, pattern)
+    torch.cuda.synchronize()
+    assert orb_patch_features.launches == before + 1
+    ang_p, desc_p, _ = orb_patch_features_levels_plain(levels, yx, start, pattern)
+    assert torch.equal(pm1_k, unpack_to_pm1(desc_k))
+    inside = (yx[:, 0] >= 19).cpu().numpy()  # (0, 0) rows: window clamped vs shifted
+    assert torch.isfinite(ang_k).all()
+    assert wrapped_angle_error(ang_k.cpu().numpy(), ang_p.cpu().numpy())[inside].max() < ANGLE_TOL
+    bits_k = unpack_bits(desc_k.cpu()).numpy()[inside]
+    bits_p = unpack_bits(desc_p.cpu()).numpy()[inside]
+    assert (bits_k != bits_p).mean() < BIT_TOL
+
+
+def test_patch_levels_kernel_rejects_more_than_max_levels(cuda_device):  # noqa: F811
+    levels = _pyramid(cuda_device, MAX_LEVELS + 1)
+    yx = torch.full((len(levels), 2), 20, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        orb_patch_features_levels(levels, yx, list(range(len(levels) + 1)), orb_pattern(cuda_device))
+
+
 def test_patch_kernel_rejects_bad_input(cuda_device):  # noqa: F811
     img = torch.zeros((64, 64), device=cuda_device)
     pattern = orb_pattern(cuda_device)
@@ -95,9 +168,13 @@ def test_patch_kernel_rejects_bad_input(cuda_device):  # noqa: F811
 def test_extractor_kernels_match_plain(cuda_device):  # noqa: F811
     cam = load_config("configs/TUM1.yaml").cam._replace(width=320, height=240)
     img = torch.from_numpy(rendered_frame(320, 240, dist=cam.dist)).to(cuda_device)
+    before = fast_score_nms.launches, orb_patch_features.launches
     with torch.no_grad():
         fk = ORBExtractor(256, 1.2, 3, cam=cam).to(cuda_device)(img)
         fp = ORBExtractor(256, 1.2, 3, cam=cam, use_kernels=False).to(cuda_device)(img)
+    # one launch of each kernel per extraction, over all 3 levels
+    assert (fast_score_nms.launches, orb_patch_features.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fk.desc_pm1, unpack_to_pm1(fk.desc_packed))
     # kernel A is bit-exact, so both paths select the same keypoints
     assert torch.equal(fk.valid, fp.valid)
     assert torch.equal(fk.xy_raw, fp.xy_raw)
@@ -157,12 +234,17 @@ def test_system_on_card(cuda_device):  # noqa: F811
     seq = SyntheticSequence(n_frames=16, n_points=700, kind="strafe", seed=3)
     cfg = SlamConfig(n_features=600, n_levels=4, fps=10.0, k_max=64, l_max=8192, enable_loop_closing=False)
     system = SlamSystem(cfg, device=cuda_device)
+    calls = []
+    for extractor in (system.tracker.extractor, system.tracker.ini_extractor):
+        extractor.register_forward_hook(lambda *_: calls.append(1))
     before = fast_score_nms.launches, orb_patch_features.launches
     with torch.no_grad():
         for i in range(seq.n_frames):
             system.track_monocular(seq.render(i), 0.1 * i)
     assert system.state == TrackingState.OK and system.map.n_kf_active() >= 3
-    assert fast_score_nms.launches > before[0] and orb_patch_features.launches > before[1]
+    # one launch of each kernel per extraction
+    assert fast_score_nms.launches - before[0] == len(calls) == orb_patch_features.launches - before[1]
+    assert len(calls) >= seq.n_frames
     assert system.tracker.n_fused_frames > 0
     m = system.map
     for name in ("lm_pos", "lm_valid", "lm_desc_pm1", "lm_normal", "lm_min_dist", "lm_max_dist", "lm_octave",
