@@ -12,16 +12,29 @@ one launch over every pyramid level, at the shapes the extractors give it
 extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
-feeding pose and velocity forward. Last it runs the whole system,
-``SlamSystem``, from the first frame of the 60-frame synthetic sequence
-(``python -m orbslam_in_practice_tpu_torch.run_slam --synthetic``'s
-configuration: 800 features, 4 levels, 256 keyframe and 16384 landmark
-slots): initialisation, tracking, local mapping, and the ATE against the
-JAX package's figures; in both runs each kernel must launch once per
-extraction. It prints times in microseconds per kernel launch and
-milliseconds per frame and per keyframe epoch, one JSON line describing the
-kernels (launches summed over the tracking step's and the system's runs),
-and last ``{"ok": true, "device": {...}}``.
+feeding pose and velocity forward. Then it runs the whole system,
+``SlamSystem``, three times, at the JAX package's default settings (loop
+closing on, relocalisation when lost):
+
+- ``phase_system``: the 60-frame synthetic strafe from its first frame
+  (``python -m orbslam_in_practice_tpu_torch.run_slam --synthetic``'s
+  configuration: 800 features, 4 levels, 256 keyframe and 16384 landmark
+  slots): initialisation, tracking, local mapping, loop detection (the
+  strafe revisits nothing: no closure), and the ATE against the JAX
+  package's figures;
+- ``phase_relocalize``: the same configuration on tests/test_e2e.py's
+  kidnapped camera: 28 frames, 3 blank frames (LOST), frame 20 again
+  (relocalised near its earlier pose), frame 21 (tracked);
+- ``phase_loop``: tests/test_e2e_long_sequence.py's live loop closure, a
+  340-frame noisy orbit against 48 keyframe slots: tracked, slots recycled,
+  at least one closure, ATE after < 0.6 of the ATE just before the first
+  closure and < 1% of the path.
+
+In every run each kernel must launch once per extraction. It prints times
+in microseconds per kernel launch and milliseconds per frame, per keyframe
+epoch and per loop closure by span, one JSON line describing the kernels
+(launches summed over the tracking step's and the three systems' runs), and
+last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero; without a CUDA device
 it exits 2 and prints no result. It imports nothing of JAX.
@@ -42,13 +55,22 @@ ROOT = Path(__file__).resolve().parent
 # the CPU; the port must stay under twice it on each frame. The strafe step
 # is 0.04 units.
 REFERENCE_CENTRE_ERR = (0.00459, 0.00880, 0.00735, 0.00535, 0.00585, 0.00477, 0.00726, 0.00980, 0.01013, 0.01569)
-# the JAX package's SlamSystem on the same 60 frames and configuration, on
-# the CPU (loop closing off): 58 of 60 frames tracked, ATE 0.015822 in scene
-# units, 14 keyframes, 1322 landmarks. The port must track at least 2 frames
-# fewer and stay under twice that ATE or tests/test_e2e.py's 0.05.
+# the JAX package's SlamSystem on the same 60 frames and configuration, loop
+# closing on, on the CPU (measured again with loop closing on; the figures
+# equal those with it off): 58 of 60 frames tracked, ATE 0.015822 in scene
+# units, 14 keyframes, 1322 landmarks, 0 loop closures. The port must track
+# at least 2 frames fewer, stay under twice that ATE or tests/test_e2e.py's
+# 0.05, and close as many loops.
 REFERENCE_SYSTEM_TRACKED = 58
 REFERENCE_SYSTEM_ATE = 0.015822
+REFERENCE_SYSTEM_CLOSURES = 0
 SYSTEM_FRAMES = 60
+# tests/test_e2e.py::test_e2e_lost_and_relocalize's gates on the recovered
+# pose against the port's own estimate of the same frame
+RELOC_TRACK_FRAMES, RELOC_FRAME = 28, 20
+RELOC_T_TOL, RELOC_R_TOL = 0.06, 0.05
+LOOP_FRAMES = 340  # tests/test_e2e_long_sequence.py's orbit
+LOOP_K_MAX, LOOP_L_MAX = 48, 4096
 ANGLE_TOL = 1e-3  # rad, kernel B vs its plain version
 BIT_TOL = 0.005  # fraction of descriptor bits, kernel B vs its plain version
 POSE_TOL = 1e-3  # Tcw entries, kernel path vs plain path
@@ -57,6 +79,34 @@ POSE_TOL = 1e-3  # Tcw entries, kernel path vs plain path
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_launches() -> None:
+    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
+    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
+
+    fast_score_nms.launches = 0
+    orb_patch_features.launches = 0
+
+
+def read_launches() -> dict:
+    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
+    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
+
+    return {"fast_score_nms": fast_score_nms.launches, "orb_patch_features": orb_patch_features.launches}
+
+
+def check_launches(launches: dict, calls: list, what: str, n_frames: int) -> None:
+    for name, count in launches.items():
+        check(count == len(calls) >= n_frames, f"{what} launched {name} {count} times for {len(calls)} extractions "
+              f"of {n_frames} frames")
 
 
 def extraction_counter(*extractors) -> list:
@@ -210,8 +260,6 @@ def phase_step(device) -> dict:
     import torch
 
     from orbslam_in_practice_tpu_torch.bench_state import bench_config, build_bench_state
-    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
-    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
     from orbslam_in_practice_tpu_torch.slam.tracking import FusedSteadyStep
 
     cfg = bench_config()
@@ -220,10 +268,9 @@ def phase_step(device) -> dict:
     calls = extraction_counter(step.extractor)
 
     with torch.no_grad():
-        fast_score_nms.launches = 0
-        orb_patch_features.launches = 0
+        reset_launches()
         tracked = run_chain(step, args, images, device)
-        launches = {"fast_score_nms": fast_score_nms.launches, "orb_patch_features": orb_patch_features.launches}
+        launches = read_launches()
         tracked_plain = run_chain(plain, args, images, device)
     for name, n in launches.items():
         check(n == len(calls) == len(images), f"the tracking step launched {name} {n} times for {len(calls)} "
@@ -261,26 +308,26 @@ def phase_step(device) -> dict:
 
 def phase_system(device) -> dict:
     """The port's SlamSystem from frame 0 of the 60-frame synthetic sequence
-    on the kernel path: initialisation, fused and unfused tracking, one
-    local-mapping epoch per keyframe. Gates: final state OK, tracked frames
-    and ATE against the JAX package's run, each kernel launched once per
-    extraction, at least one frame through the fused step."""
+    on the kernel path, loop closing on: initialisation, fused and unfused
+    tracking, one local-mapping epoch and loop-closure attempt per keyframe.
+    Gates: final state OK, tracked frames, ATE and loop closures against the
+    JAX package's run, each kernel launched once per extraction, at least
+    one frame through the fused step."""
     import torch
 
     from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
-    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
-    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
     from orbslam_in_practice_tpu_torch.run_slam import run_sequence, synthetic_config
     from orbslam_in_practice_tpu_torch.system import SlamSystem
 
     seq = SyntheticSequence(n_frames=SYSTEM_FRAMES)
-    system = SlamSystem(synthetic_config(), device=device)
+    cfg = synthetic_config()
+    check(cfg.enable_loop_closing, "the synthetic configuration has loop closing off")
+    system = SlamSystem(cfg, device=device)
     calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
     with torch.no_grad():
-        fast_score_nms.launches = 0
-        orb_patch_features.launches = 0
+        reset_launches()
         out = run_sequence(system, seq, SYSTEM_FRAMES)
-        launches = {"fast_score_nms": fast_score_nms.launches, "orb_patch_features": orb_patch_features.launches}
+        launches = read_launches()
     desc = system.map.kf_desc_pm1
     desc_mb = desc.numel() * desc.element_size() / 1e6
     st = out["epoch_stage_ms"]
@@ -293,6 +340,10 @@ def phase_system(device) -> dict:
     print(f"system: {out['fused_frames']} frames through the fused step")
     print(f"system keyframe epochs: {out['epochs']}, ms/epoch: "
           + ", ".join(f"{k} {v:.1f}" for k, v in st.items()) + f", total {sum(st.values()):.1f}")
+    closer = system.tracker.loop_closer
+    print(f"system loop closing: {closer.n_attempts} attempts, {out['loop_closures']} closures, ms per keyframe "
+          "epoch: " + ", ".join(f"{k} {st.get(k, 0.0):.2f}" for k in ("lc_detect", "lc_sim3", "lc_correct",
+                                                                     "lc_global_ba")))
     print(f"system kf_desc_pm1 on the device: {tuple(desc.shape)} {desc.dtype}, {desc_mb:.1f} MB; launches {launches} "
           f"for {len(calls)} extractions")
     check(out["state"] == "OK", f"system ended in state {out['state']}")
@@ -300,10 +351,136 @@ def phase_system(device) -> dict:
     check(out["tracked"] >= need, f"system tracked {out['tracked']} frames, fewer than {need}")
     bound = max(2.0 * REFERENCE_SYSTEM_ATE, 0.05)
     check(out["ate_rmse"] < bound, f"system ATE {out['ate_rmse']} not under {bound}")
-    for name, count in launches.items():
-        check(count == len(calls) >= SYSTEM_FRAMES, f"the system launched {name} {count} times for "
-              f"{len(calls)} extractions of {SYSTEM_FRAMES} frames")
+    check(out["loop_closures"] == REFERENCE_SYSTEM_CLOSURES,
+          f"system closed {out['loop_closures']} loops, the JAX package {REFERENCE_SYSTEM_CLOSURES}")
+    check(closer.n_attempts > 0, "no loop-closure attempt")
+    check_launches(launches, calls, "the system", SYSTEM_FRAMES)
     check(out["fused_frames"] > 0, "no frame went through the fused step")
+    return launches
+
+
+def phase_relocalize(device) -> dict:
+    """tests/test_e2e.py's kidnapped camera at the synthetic configuration
+    on the kernel path: track 28 frames of the strafe (700 points, seed 3),
+    feed 3 blank frames (LOST), feed frame 20 again (relocalised: state OK,
+    pose within RELOC_T_TOL / RELOC_R_TOL of the port's own frame-20
+    estimate), then frame 21 (tracked). Each kernel launches once per
+    extraction, the blank frames included."""
+    import numpy as np
+    import torch
+
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+    from orbslam_in_practice_tpu_torch.run_slam import synthetic_config
+    from orbslam_in_practice_tpu_torch.slam.tracking import TrackingState
+    from orbslam_in_practice_tpu_torch.system import SlamSystem
+
+    seq = SyntheticSequence(n_frames=RELOC_TRACK_FRAMES, n_points=700, kind="strafe", seed=3)
+    system = SlamSystem(synthetic_config(), device=device)
+    calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+    blank = np.zeros((seq.height, seq.width), np.float32)
+    poses = {}
+    with torch.no_grad():
+        reset_launches()
+        for i in range(RELOC_TRACK_FRAMES):
+            pose = system.track_monocular(seq.render(i), 0.1 * i)
+            if pose is not None:
+                poses[i] = pose
+        state_tracked, n_kf = system.state, system.map.n_kf_active()
+        for k in range(3):
+            system.track_monocular(blank, 3.0 + 0.1 * k)
+        state_lost = system.state
+        image = seq.render(RELOC_FRAME)
+        sync(device)
+        t0 = time.perf_counter()
+        pose = system.track_monocular(image, 4.0)
+        sync(device)
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+        path, state_reloc = system.tracker.frame_path, system.state
+        after = system.track_monocular(seq.render(RELOC_FRAME + 1), 4.1)
+        launches = read_launches()
+    print(f"relocalize: {len(poses)} of {RELOC_TRACK_FRAMES} frames tracked, {n_kf} keyframes, state {state_tracked.name}"
+          f" -> {state_lost.name} after 3 blank frames -> {state_reloc.name} on frame {RELOC_FRAME} ({path}, "
+          f"{reloc_ms:.1f} ms) -> {system.state.name} on frame {RELOC_FRAME + 1}; launches {launches} for "
+          f"{len(calls)} extractions")
+    check(state_tracked == TrackingState.OK and RELOC_FRAME in poses and n_kf > 5,
+          f"relocalize: tracking ended {state_tracked.name} with {n_kf} keyframes")
+    check(state_lost == TrackingState.LOST, f"relocalize: {state_lost.name} after the blank frames, not LOST")
+    check(state_reloc == TrackingState.OK and path == "reloc" and pose is not None, "relocalize: not relocalised")
+    dt = float(np.abs(pose[:3, 3] - poses[RELOC_FRAME][:3, 3]).max())
+    dr = float(np.abs(pose[:3, :3] - poses[RELOC_FRAME][:3, :3]).max())
+    print(f"relocalize: pose against the earlier estimate: translation {dt:.4f} (tolerance {RELOC_T_TOL}), "
+          f"rotation {dr:.4f} (tolerance {RELOC_R_TOL})")
+    check(dt < RELOC_T_TOL and dr < RELOC_R_TOL, f"relocalize: pose off by {dt} / {dr}")
+    check(after is not None and system.state == TrackingState.OK, "relocalize: the next frame was not tracked")
+    check_launches(launches, calls, "relocalize", RELOC_TRACK_FRAMES + 5)
+    return launches
+
+
+def phase_loop(device) -> dict:
+    """tests/test_e2e_long_sequence.py's live loop closure on the kernel
+    path: a noisy orbit (340 frames, 700 points, seed 5, 2 pi / 280 a frame,
+    depth 3-9, spread (6, 5), pixel noise 1.0, brightness jitter 0.1) at 600
+    features, 4 levels, fps 10, 48 keyframe and 4096 landmark slots. Gates:
+    state OK, > 90% tracked, more insertions than keyframe slots, >= 1
+    closure, ATE < 0.6 of the ATE just before the first closure and < 1% of
+    the path; each kernel launched once per extraction."""
+    import numpy as np
+    import torch
+
+    from orbslam_in_practice_tpu_torch.config import SlamConfig
+    from orbslam_in_practice_tpu_torch.io.evaluation import ate_rmse
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+    from orbslam_in_practice_tpu_torch.slam.tracking import TrackingState
+    from orbslam_in_practice_tpu_torch.system import SlamSystem
+
+    seq = SyntheticSequence(
+        n_frames=LOOP_FRAMES, n_points=700, kind="orbit", seed=5, orbit_step=2 * math.pi / 280,
+        depth_range=(3.0, 9.0), spread=(6.0, 5.0), noise_sigma=1.0, brightness_jitter=0.1,
+    )
+    cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, n_features=600, n_levels=4,
+                     fps=10.0, k_max=LOOP_K_MAX, l_max=LOOP_L_MAX)
+    system = SlamSystem(cfg, device=device)
+    tracker = system.tracker
+    closer = tracker.loop_closer
+    calls = extraction_counter(tracker.extractor, tracker.ini_extractor)
+    gt = seq.gt_centers()
+    n_tracked, ate_pre, pre_snapshot, track_s = 0, None, None, 0.0
+    with torch.no_grad():
+        reset_launches()
+        for i in range(LOOP_FRAMES):
+            if closer.n_closures == 0:
+                pre_snapshot = list(system.get_trajectory())
+            image = seq.render(i)
+            sync(device)
+            t0 = time.perf_counter()
+            n_tracked += system.track_monocular(image, 0.1 * i) is not None
+            sync(device)
+            track_s += time.perf_counter() - t0
+            if closer.n_closures >= 1 and ate_pre is None and pre_snapshot:
+                ate_pre = ate_rmse(pre_snapshot, gt)[0]  # the drift just before the first closure
+        launches = read_launches()
+    rmse, n_aligned, _ = ate_rmse(system.get_trajectory(), gt)
+    path_len = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    insertions = int(np.asarray(tracker.map.kf_seq).max()) + 1
+    print(f"loop: {LOOP_FRAMES} frames, tracked {n_tracked}, state {system.state.name}, {insertions} keyframe "
+          f"insertions into {LOOP_K_MAX} slots ({tracker.map.n_kf_active()} active), "
+          f"{tracker.map.n_lm_active()} landmarks, {LOOP_FRAMES / track_s:.2f} frames/s inside track_monocular")
+    print(f"loop: {closer.n_closures} closures in {closer.n_attempts} attempts; ATE before the first closure "
+          f"{ate_pre}, after the run {rmse:.4f} over a {path_len:.2f} path ({100 * rmse / path_len:.2f}%)")
+    for c in closer.closures:
+        print(f"loop closure at frame {c['frame']} (keyframe slot {c['kf']}, seq {c['kf_seq']}) to candidate slot "
+              f"{c['cand']} (seq {c['cand_seq']}), scale {c['scale']:.4f}, {c['inliers']} inliers, ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in c["ms"].items()))
+    print(f"loop: launches {launches} for {len(calls)} extractions")
+    check(system.state == TrackingState.OK, f"loop: ended in state {system.state.name}")
+    check(n_tracked > 0.9 * LOOP_FRAMES, f"loop: tracked {n_tracked} of {LOOP_FRAMES}")
+    check(insertions > LOOP_K_MAX, f"loop: {insertions} insertions, not more than {LOOP_K_MAX} slots")
+    check(tracker.map.n_kf_active() <= LOOP_K_MAX and tracker.map.n_lm_active() < LOOP_L_MAX, "loop: map overflow")
+    check(closer.n_closures >= 1, "loop: no loop closure")
+    check(n_aligned > 0.9 * LOOP_FRAMES, f"loop: {n_aligned} frames aligned")
+    check(ate_pre is not None and rmse < 0.6 * ate_pre, f"loop: ATE {rmse} not under 0.6 of {ate_pre}")
+    check(rmse < 0.01 * path_len, f"loop: ATE {rmse} not under 1% of the {path_len} path")
+    check_launches(launches, calls, "loop", LOOP_FRAMES)
     return launches
 
 
@@ -346,9 +523,8 @@ def main() -> int:
                              (f"TUM1 8 levels, {tum1_config().n_features} features", tum1, tum1_config().n_features)):
         b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, label, levels, n)["max_abs_err"])
     phase_tum1(device)
-    step_launches = phase_step(device)
-    system_launches = phase_system(device)
-    launches = {k: step_launches[k] + system_launches[k] for k in step_launches}
+    runs = [phase_step(device), phase_system(device), phase_relocalize(device), phase_loop(device)]
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
 
     kernels = [
         {

@@ -1,17 +1,18 @@
 """Descriptor matching: dense masked Hamming with ORB-SLAM's gating rules.
 
 Port of ``orbslam_in_practice_tpu/frontend/matcher.py``: windowed matching
-for initialisation, projection matching, frame-to-keyframe matching and
-epipolar matching of two keyframes' free features. The Hamming matrix is one
+for initialisation, projection matching, frame-to-keyframe matching,
+epipolar matching of two keyframes' free features and matching of two
+descriptor sets. The Hamming matrix is one
 matrix product; window, octave, frustum and epipolar gates are masks on it;
 unique assignment is a scatter-min over claimed features.
 
 Every ``lax.top_k`` of the reference becomes a min over ``value * N +
 index`` (ties to the lower index, as ``top_k`` breaks them), and every
 ``.at[].min`` a ``scatter_reduce_(reduce="amin", include_self=True)``.
-``search_by_projection`` and ``epipolar_match_kf`` take an optional leading
-batch dimension on the frame side (the reference vmaps them over
-neighbour keyframes).
+``search_by_projection``, ``epipolar_match_kf`` and ``search_frame_to_kf``
+take an optional leading batch dimension on the keyframe side (the
+reference vmaps them over keyframes).
 """
 
 from __future__ import annotations
@@ -28,7 +29,11 @@ TH_HIGH = 100  # max Hamming distance of a match
 HISTO_BINS = 30  # rotation-consistency histogram bins
 INIT_WINDOW = 100  # initialisation search window, pixels
 INIT_NN_RATIO = 0.9  # initialisation best / second-best ratio
-KF_NN_RATIO = 0.7  # frame-to-keyframe best / second-best ratio
+KF_NN_RATIO = 0.7  # frame-to-keyframe best / second-best ratio, tracking
+# keyframe-to-keyframe association in loop closing: all against all with no
+# spatial window, so looser than TH_LOW / 0.75; the Sim3 RANSAC's pixel
+# gates keep the precision
+SETS_NN_RATIO = 0.9
 _BIG = 1 << 20
 
 
@@ -200,19 +205,43 @@ def search_frame_to_kf(
     kf_angle: torch.Tensor,
     kf_desc_pm1: torch.Tensor,
     kf_has_lm: torch.Tensor,
+    nn_ratio: float = KF_NN_RATIO,
 ) -> torch.Tensor:
     """Match the frame's features against a keyframe's landmark-bearing
-    features (the role of ORB-SLAM's SearchByBoW): ratio test at
-    KF_NN_RATIO, cross-check, rotation consistency. Returns (N_frame,) int32 index into the keyframe's
-    features or -1."""
-    dist = hamming_matrix(frame.desc_pm1, kf_desc_pm1)
-    maskm = frame.valid[:, None] & kf_has_lm[None, :]
+    features (the role of ORB-SLAM's SearchByBoW): distance <= TH_LOW, ratio
+    test at ``nn_ratio``, cross-check, rotation consistency. The keyframe
+    arguments take an optional leading batch dim B (one lane per keyframe).
+    Returns ([B,] N_frame) int32 index into the keyframe's features or -1."""
+    dist = hamming_matrix(frame.desc_pm1, kf_desc_pm1)  # ([B,] N, F)
+    maskm = frame.valid[:, None] & kf_has_lm[..., None, :]
     masked = torch.where(maskm, dist, _BIG)
     d1, j_best, d2 = _top2_by_row(masked)
-    ok = (d1 <= TH_LOW) & (d1.to(torch.float32) < KF_NN_RATIO * d2.to(torch.float32))
+    ok = (d1 <= TH_LOW) & (d1.to(torch.float32) < nn_ratio * d2.to(torch.float32))
     rows = torch.arange(frame.n_features, device=dist.device)
+    ok = ok & (torch.gather(_argmin_by_col(masked), -1, j_best) == rows)
+    ok = _rotation_consistency(frame.angle - torch.gather(kf_angle, -1, j_best), ok)
+    return torch.where(ok, j_best, -1).to(torch.int32)
+
+
+def match_descriptor_sets(
+    desc_a_pm1: torch.Tensor,
+    mask_a: torch.Tensor,
+    desc_b_pm1: torch.Tensor,
+    mask_b: torch.Tensor,
+    angle_a: torch.Tensor,
+    angle_b: torch.Tensor,
+) -> torch.Tensor:
+    """Masked matching of two descriptor sets (keyframe-to-keyframe
+    association in loop closing): distance <= TH_HIGH, ratio test at
+    SETS_NN_RATIO, cross-check, rotation consistency. Returns (A,) int32
+    index into B or -1."""
+    dist = hamming_matrix(desc_a_pm1, desc_b_pm1)
+    masked = torch.where(mask_a[:, None] & mask_b[None, :], dist, _BIG)
+    d1, j_best, d2 = _top2_by_row(masked)
+    ok = (d1 <= TH_HIGH) & (d1.to(torch.float32) < SETS_NN_RATIO * d2.to(torch.float32))
+    rows = torch.arange(desc_a_pm1.shape[0], device=dist.device)
     ok = ok & (_argmin_by_col(masked)[j_best] == rows)
-    ok = _rotation_consistency(frame.angle - kf_angle[j_best], ok)
+    ok = _rotation_consistency(angle_a - angle_b[j_best], ok)
     return torch.where(ok, j_best, -1).to(torch.int32)
 
 

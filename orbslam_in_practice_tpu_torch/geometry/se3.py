@@ -110,6 +110,20 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) as (w, x, y, z), normalised here -> (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) (or (..., 3))."""
     R = T[..., :3, :3]

@@ -1,1 +1,1 @@
-"""Pose-only optimisation."""
+"""Optimisation: pose-only, bundle adjustment and the Sim3 pose graph."""

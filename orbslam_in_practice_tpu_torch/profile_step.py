@@ -36,6 +36,7 @@ SPANS = (
 )
 SYSTEM_SPANS = SPANS + (
     "init_twoview", "init_global_ba", "kf_create", "kf_fuse", "kf_local_ba", "kf_cull", "kf_refresh",
+    "reloc", "lc_detect", "lc_sim3", "lc_correct", "lc_global_ba",
 )
 KERNELS = ("fast_score_nms_kernel", "orb_patch_kernel")  # csrc/*.cu
 

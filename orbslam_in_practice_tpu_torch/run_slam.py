@@ -4,11 +4,13 @@
 
 The counterpart of the JAX package's ``run_slam.py --synthetic``: the strafe
 sequence (600 points, seed 0) at 640x480, fx = fy = 500, 800 features over
-4 levels, 256 keyframe and 16384 landmark slots, loop closing off. Prints
-milliseconds per frame by the path that tracked it (initialisation, fused
-step, fused step then reference-keyframe fallback, unfused flow), apart
-for the frames that ran a keyframe epoch, milliseconds per keyframe epoch
-by stage, frames/s, the tracked fraction and the ATE, then one JSON line.
+4 levels, 256 keyframe and 16384 landmark slots, loop closing on (the
+strafe never revisits a place, so none closes). Prints milliseconds per
+frame by the path that tracked it (initialisation, fused step, fused step
+then reference-keyframe fallback, unfused flow, relocalisation), apart for
+the frames that ran a keyframe epoch, milliseconds per keyframe epoch by
+stage (the local-mapping stages and the loop closer's), frames/s, the
+tracked fraction, loop closures and the ATE, then one JSON line.
 The default device is ``cuda``; it runs on the CPU only when ``--device
 cpu`` is given.
 """
@@ -24,17 +26,18 @@ import torch
 from orbslam_in_practice_tpu_torch.config import SlamConfig
 from orbslam_in_practice_tpu_torch.io.evaluation import ate_rmse
 from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+from orbslam_in_practice_tpu_torch.slam.loop_closing import STAGES as LC_STAGES
 from orbslam_in_practice_tpu_torch.system import SlamSystem
 
 EPOCH_STAGES = ("kf_create", "kf_fuse", "kf_local_ba", "kf_cull", "kf_refresh")
-FRAME_KINDS = ("init", "fused", "fused_fallback", "unfused", "reset", "lost")
+FRAME_KINDS = ("init", "fused", "fused_fallback", "unfused", "reloc", "reset", "lost")
 FRAME_DT = 0.1  # seconds between frames' timestamps
 
 
 def synthetic_config() -> SlamConfig:
     """The synthetic run's configuration."""
     return SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, n_features=800,
-                      n_levels=4, k_max=256, l_max=16384, enable_loop_closing=False)
+                      n_levels=4, k_max=256, l_max=16384)
 
 
 def run_sequence(system: SlamSystem, seq: SyntheticSequence, n_frames: int) -> dict:
@@ -46,9 +49,10 @@ def run_sequence(system: SlamSystem, seq: SyntheticSequence, n_frames: int) -> d
     apart from those without.
 
     Returns a dict: per-path frame counts and mean ms (``frame_*`` without
-    an epoch, ``keyframe_*`` with one), epoch stage ms, the tracked count,
-    fps (frames over the seconds inside ``track_monocular``), final state,
-    map stats and ATE.
+    an epoch, ``keyframe_*`` with one), epoch stage ms (the loop closer's
+    stages over the epochs too), the tracked count, fps (frames over the
+    seconds inside ``track_monocular``), final state, loop closures, map
+    stats and ATE.
     """
     tracker = system.tracker
     device = tracker.device
@@ -73,6 +77,10 @@ def run_sequence(system: SlamSystem, seq: SyntheticSequence, n_frames: int) -> d
     n_epochs = max(mapper.n_epochs, 1)
     rmse, n_aligned, coverage = ate_rmse(system.get_trajectory(), seq.gt_centers()[:n_frames])
     mean = lambda v: sum(v) / len(v) if v else None  # noqa: E731
+    stage_s = {k: mapper.stage_s.get(k, 0.0) for k in EPOCH_STAGES}
+    closer = tracker.loop_closer
+    if closer is not None:
+        stage_s.update({k: closer.stage_s.get(k, 0.0) for k in LC_STAGES})
     return {
         "frames": n_frames,
         "tracked": n_tracked,
@@ -84,7 +92,9 @@ def run_sequence(system: SlamSystem, seq: SyntheticSequence, n_frames: int) -> d
         "keyframe_count": {k: len(v) for k, v in keyframe_ms.items()},
         "keyframe_ms": {k: mean(v) for k, v in keyframe_ms.items()},
         "epochs": mapper.n_epochs,
-        "epoch_stage_ms": {k: mapper.stage_s.get(k, 0.0) * 1e3 / n_epochs for k in EPOCH_STAGES},
+        "epoch_stage_ms": {k: v * 1e3 / n_epochs for k, v in stage_s.items()},
+        "loop_closures": 0 if closer is None else closer.n_closures,
+        "closures": [] if closer is None else closer.closures,
         "fused_frames": tracker.n_fused_frames,
         "local_map_truncations": tracker.n_local_map_truncations,
         **mapper.stats(),
@@ -118,7 +128,8 @@ def main(argv=None) -> dict:
     print(f"keyframe epochs: {out['epochs']}, ms/epoch by stage: "
           + ", ".join(f"{k} {v:.1f}" for k, v in out["epoch_stage_ms"].items()))
     print(f"{out['fps']:.2f} frames/s, tracked {out['tracked']}/{out['frames']}, "
-          f"ATE {out['ate_rmse']:.5f}, {out['n_kf']} keyframes, {out['n_lm']} landmarks, on {out['device']}")
+          f"ATE {out['ate_rmse']:.5f}, {out['n_kf']} keyframes, {out['n_lm']} landmarks, "
+          f"{out['loop_closures']} loop closures, on {out['device']}")
     if args.traj_out:
         system.save_trajectory_tum(args.traj_out)
     print(json.dumps(out))

@@ -1,1 +1,1 @@
-"""Tracking: the fused steady-state step."""
+"""SLAM: tracking, the map, local mapping, relocalisation and loop closing."""

@@ -32,13 +32,19 @@ SAMPLE = 8
 MIN_INLIERS = 50  # fewest good points a successful initialisation keeps
 
 
-def ransac_samples(match_mask: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-    """(N_RANSAC, SAMPLE) int64 match indices drawn with replacement, each
-    valid match equally likely."""
+def ransac_samples(
+    match_mask: torch.Tensor,
+    generator: torch.Generator | None = None,
+    n_hyp: int = N_RANSAC,
+    size: int = SAMPLE,
+) -> torch.Tensor:
+    """(n_hyp, size) int64 indices of ``match_mask``'s true entries, drawn
+    with replacement, each equally likely (``jax.random.choice(key, n,
+    (n_hyp, size), replace=True, p=mask / mask.sum())`` of the reference)."""
     probs = match_mask.to(torch.float32)
     probs = probs / torch.clamp(torch.sum(probs), min=1.0)
-    idx = torch.multinomial(probs, N_RANSAC * SAMPLE, replacement=True, generator=generator)
-    return idx.reshape(N_RANSAC, SAMPLE)
+    idx = torch.multinomial(probs, n_hyp * size, replacement=True, generator=generator)
+    return idx.reshape(n_hyp, size)
 
 
 def initialize_two_view(

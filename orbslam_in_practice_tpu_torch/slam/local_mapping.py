@@ -190,7 +190,7 @@ def _fuse_match_neighbors(smap, pts, desc, valid, octv, nb_idx, lane_ok, K, scal
 class LocalMapper:
     """Synchronous local-mapping pipeline driven by Tracking."""
 
-    def __init__(self, config, device: torch.device | str = "cpu"):
+    def __init__(self, config, device: torch.device | str = "cuda"):
         self.cfg = config
         self.device = torch.device(device)
         self.scale_factors = np.array([config.scale_factor**i for i in range(config.n_levels)], dtype=np.float32)
@@ -430,15 +430,21 @@ class LocalMapper:
 
     # ---------- fusion ----------
 
-    def fuse_neighbors(self, smap, kf_id: int) -> int:
+    def fuse_neighbors(self, smap, kf_id: int, neighbors=None) -> int:
         """Project the keyframe's landmarks into its covisible neighbours:
         matched free features gain an observation; a matched feature holding
         another landmark within 5% of viewing depth of it triggers a merge
-        (the landmark with more observations wins)."""
+        (the landmark with more observations wins). ``neighbors`` overrides
+        the covisible set: the loop closer passes the loop candidate's
+        neighbourhood, so the revisit's duplicate landmarks merge into the
+        corrected originals (SearchAndFuse)."""
         with smap.lock:
-            row = smap.covisibility()[kf_id]
-            order = np.argsort(-row)
-            neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 15 and i != kf_id]
+            if neighbors is None:
+                row = smap.covisibility()[kf_id]
+                order = np.argsort(-row)
+                neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 15 and i != kf_id]
+            else:
+                neighbors = [int(i) for i in neighbors[:N_NEIGHBORS] if i != kf_id]
             lm_ids = smap.keyframe_landmarks(kf_id)
             if len(lm_ids) == 0 or not neighbors:
                 return 0

@@ -4,10 +4,10 @@ Port of ``orbslam_in_practice_tpu/slam/tracking.py``. ``Tracking`` runs the
 5-state machine on the host: two-view initialisation from the first frames
 (doubled feature budget), then per frame the fused steady-state step, with
 the unfused flow (reference-keyframe tracking, local-map tracking) as its
-fallback, the keyframe decision and insertion, and a synchronous
-local-mapping epoch per keyframe. Relocalisation, loop closing and
-asynchronous mapping are not ported: the settings that need them raise
-``NotImplementedError``.
+fallback, the keyframe decision and insertion, a synchronous local-mapping
+epoch per keyframe followed by a loop-closure attempt, and relocalisation
+when lost with more than 5 keyframes. Asynchronous mapping is not ported:
+``async_mapping=True`` raises ``NotImplementedError``.
 
 ``FusedSteadyStep`` is ``Tracking._build_fused_steady``: decode the 8.8
 fixed-point image -> ORB extraction -> motion-model projection match
@@ -21,8 +21,9 @@ step free of host synchronisation.
 Each stage runs inside a ``torch.profiler.record_function`` span (the
 step's extract, match_motion_r15, match_motion_r30, pose_opt_motion,
 match_local, pose_opt_local; initialisation's init_twoview and
-init_global_ba), which ``profile_step.py`` reads; a span costs a few
-microseconds of host time when no profiler is running.
+init_global_ba; relocalisation's reloc; the loop closer's lc_detect,
+lc_sim3, lc_correct and lc_global_ba), which ``profile_step.py`` reads; a
+span costs a few microseconds of host time when no profiler is running.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, b
 from orbslam_in_practice_tpu_torch.optim.pose_opt import pose_optimization
 from orbslam_in_practice_tpu_torch.slam.initializer import initialize_two_view
 from orbslam_in_practice_tpu_torch.slam.local_mapping import LocalMapper
+from orbslam_in_practice_tpu_torch.slam.loop_closing import LoopCloser
 from orbslam_in_practice_tpu_torch.slam.map import SlamMap, _host
+from orbslam_in_practice_tpu_torch.slam.relocalization import relocalize
 
 LOCAL_MAP_MAX = 4096  # padded local-map landmark budget
 INIT_BA_ITERATIONS = 20  # LM iterations of the two-keyframe global BA
@@ -175,14 +178,13 @@ class Tracking:
     After each frame, ``frame_path`` names the path it took: 'init'
     (initialisation), 'fused' (the fused step alone), 'fused_fallback' (the
     fused step, then reference-keyframe tracking), 'unfused' (the unfused
-    flow only) or 'reset' (lost early: the map was reset); and
+    flow only), 'reloc' (lost: relocalisation tried) or 'reset' (lost
+    early: the map was reset); and
     ``frame_keyframe`` says whether it inserted a keyframe (and so ran a
     local-mapping epoch).
     """
 
-    def __init__(self, config, device: torch.device | str = "cpu"):
-        if config.enable_loop_closing:
-            raise NotImplementedError("loop closing is not ported yet: set enable_loop_closing=False")
+    def __init__(self, config, device: torch.device | str = "cuda"):
         if config.async_mapping:
             raise NotImplementedError("asynchronous local mapping is not ported yet: set async_mapping=False")
         self.cfg = config
@@ -199,6 +201,7 @@ class Tracking:
         self.inv_level_sigma2 = self.extractor.inv_level_sigma2
         self.map = self._new_map()
         self.mapper = LocalMapper(config, self.device)
+        self.loop_closer = LoopCloser(config, self.device) if config.enable_loop_closing else None
 
         self.state = TrackingState.NO_IMAGES
         self.frame_id = -1
@@ -209,6 +212,7 @@ class Tracking:
         self.ref_kf = -1
         self.last_kf_frame_id = -1
         self._peak_inliers_since_kf = 0
+        self.last_reloc_frame_id = -(10**9)
         self._init_frame = None
         self._init_frame_id = -1
         self._prev_matched = None
@@ -224,8 +228,13 @@ class Tracking:
         self.frame_keyframe = False
 
     def _new_map(self) -> SlamMap:
-        smap = SlamMap(self.cfg.k_max, self.cfg.l_max, self.step.f_max, device=self.device)
+        return self.adopt_map(SlamMap(self.cfg.k_max, self.cfg.l_max, self.step.f_max, device=self.device))
+
+    def adopt_map(self, smap: SlamMap) -> SlamMap:
+        """Make ``smap`` the tracker's map (a new one, or one loaded from a
+        checkpoint): keyframe removals re-anchor the trajectory."""
         smap.on_kf_removed = self._reanchor_trajectory
+        self.map = smap
         return smap
 
     # ------------------------------------------------------------------
@@ -235,6 +244,8 @@ class Tracking:
         old_map = self.map
         self.map = self._new_map()
         self.mapper = LocalMapper(self.cfg, self.device)
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self.cfg, self.device)
         self.state = TrackingState.NOT_INITIALIZED
         self.last_pose = None
         self.last_obs = None
@@ -291,9 +302,11 @@ class Tracking:
         elif self.state == TrackingState.OK:
             with self.map.lock:
                 pose = self.last_pose if self._track_frame(frame) else None
-        else:  # LOST
-            if self.map.n_kf_active() > 5:
-                raise NotImplementedError("relocalization: a later slice")
+        elif self.map.n_kf_active() > 5:  # LOST
+            self.frame_path = "reloc"
+            with self.map.lock:
+                pose = self.last_pose if self._relocalize(frame) else None
+        else:
             # lost soon after initialisation: a small map is cheaper to
             # rebuild than to relocalise against
             self.reset()
@@ -648,10 +661,16 @@ class Tracking:
     def _need_new_keyframe(self, frame) -> bool:
         """ORB-SLAM's monocular keyframe decision (mapping is synchronous,
         so always idle), with a long-gap fallback and, on young maps, an
-        inlier-decay criterion. (The reference's no-insertion window after a
-        relocalisation comes with relocalisation.)"""
+        inlier-decay criterion; none within fps frames of a relocalisation
+        while the map holds more than fps keyframes."""
         frames_since_kf = self.frame_id - self.last_kf_frame_id
         if frames_since_kf < 1:
+            return False
+        if (
+            self.last_reloc_frame_id >= 0
+            and self.frame_id < self.last_reloc_frame_id + int(self.cfg.fps)
+            and self.map.n_kf_active() > int(self.cfg.fps)
+        ):
             return False
         # tracked landmarks of the reference keyframe with >= min_obs
         # observations; right after initialisation every landmark has 2
@@ -689,8 +708,27 @@ class Tracking:
         self.last_kf_frame_id = self.frame_id
         self._peak_inliers_since_kf = 0
         self.mapper.process_new_keyframe(self.map, kf_id)
-        # local BA may have moved the keyframe; a copy, not a view of the table
+        if self.loop_closer is not None and self.loop_closer.attempt(self.map, kf_id, self.mapper):
+            self.velocity = None  # the map's geometry jumped: the motion model is stale
+        # local BA or a loop closure may have moved the keyframe; a copy, not
+        # a view of the table
         self.last_pose = self.map.kf_pose[kf_id].clone()
+
+    # ------------------------------------------------------------------
+    def _relocalize(self, frame) -> bool:
+        with record_function("reloc"):
+            ok, Tcw, obs, n_in, kf = relocalize(self, frame)
+        if not ok:
+            return False
+        self.last_pose = torch.from_numpy(Tcw).to(self.device)
+        self._prev_pose = self.last_pose
+        self.last_obs = obs
+        self.n_inliers = n_in
+        self.velocity = None
+        self.ref_kf = kf  # re-anchor to the keyframe it relocalised against
+        self.last_reloc_frame_id = self.frame_id
+        self.state = TrackingState.OK
+        return True
 
 
 def materialize_trajectory(tracker) -> list:

@@ -2,7 +2,8 @@
 
 Port of ``orbslam_in_practice_tpu/system.py``: construct from a settings
 file or a ``SlamConfig`` and a device, feed monocular frames, get poses
-back, export the trajectory. Map checkpoints are not ported yet.
+back, export the trajectory, save and load the map (the JAX package's npz
+format, so a map saved by either package loads in the other).
 """
 
 from __future__ import annotations
@@ -57,3 +58,14 @@ class SlamSystem:
         from orbslam_in_practice_tpu_torch.io.trajectory import save_kitti
 
         save_kitti(path, self.get_trajectory())
+
+    def save_map(self, path: str):
+        from orbslam_in_practice_tpu_torch.utils.checkpoint import save_map
+
+        save_map(path, self.tracker.map)
+
+    def load_map(self, path: str):
+        """Replace the tracker's map with the one saved at ``path``."""
+        from orbslam_in_practice_tpu_torch.utils.checkpoint import load_map
+
+        self.tracker.adopt_map(load_map(path, self.tracker.device))

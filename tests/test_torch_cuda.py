@@ -14,8 +14,15 @@ pyramid level: the bench's 4 levels of a 640x480 frame and TUM1's 8. Bundle adju
 card against the CPU: poses within 1e-3 and points within 1e-3 of their
 depth (``index_add_`` sums in another order on every run). The system on
 the card: state OK after the e2e sequence's first 16 frames, both kernels
-launched, and the map's device tables equal to its host truth.
+launched, and the map's device tables equal to its host truth. The
+pose-graph optimisation on the card against the CPU on a drifted chain:
+vertices within 1e-3. Relocalisation on the card against the CPU, with the
+same RANSAC samples: the same outcome, keyframe, observations and inlier
+count, Tcw within 1e-3; and the loop closer's Sim3 RANSAC likewise: the
+same inlier count, s, R, t within 1e-3.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -40,7 +47,14 @@ from orbslam_in_practice_tpu_torch.ops.cuda_patch import (
 from orbslam_in_practice_tpu_torch.ops.hamming import unpack_bits, unpack_to_pm1
 from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, orb_pattern, select_keypoints
+from orbslam_in_practice_tpu_torch.frontend.frame import Frame
+from orbslam_in_practice_tpu_torch.geometry.se3 import exp_so3
+from orbslam_in_practice_tpu_torch.geometry.sim3_lie import exp_sim3
 from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, bundle_adjustment
+from orbslam_in_practice_tpu_torch.optim.pose_graph import optimize_pose_graph
+from orbslam_in_practice_tpu_torch.slam.loop_closing import N_HYP, sim3_ransac
+from orbslam_in_practice_tpu_torch.slam.map import SlamMap
+from orbslam_in_practice_tpu_torch.slam.relocalization import relocalize
 from orbslam_in_practice_tpu_torch.slam.tracking import FusedSteadyStep, TrackingState
 from orbslam_in_practice_tpu_torch.system import SlamSystem
 
@@ -250,3 +264,109 @@ def test_system_on_card(cuda_device):  # noqa: F811
     for name in ("lm_pos", "lm_valid", "lm_desc_pm1", "lm_normal", "lm_min_dist", "lm_max_dist", "lm_octave",
                  "kf_pose", "kf_xy", "kf_octave", "kf_angle", "kf_feat_valid", "kf_desc_pm1"):
         assert getattr(m, name).is_cuda and np.array_equal(getattr(m, name).cpu().numpy(), m.hview(name)), name
+
+
+def test_pose_graph_card_matches_cpu(cuda_device):  # noqa: F811
+    """tests/test_sim3_lie.py's drifted chain: a line of 10 poses, odometry
+    edges from the drifted estimate, one loop edge from the truth."""
+    n = 10
+    true_xi = torch.zeros((n, 7))
+    true_xi[:, 0] = torch.arange(n) * 0.5
+    drift = torch.zeros((n, 7))
+    drift[:, 1] = torch.arange(n) * 0.05
+    drift[:, 6] = torch.arange(n) * 0.01
+    S_true, S_est = exp_sim3(true_xi), exp_sim3(true_xi + drift)
+    ei = torch.tensor(list(range(n - 1)) + [0])
+    ej = torch.tensor(list(range(1, n)) + [n - 1])
+    meas = torch.cat([S_est[1:] @ torch.linalg.inv(S_est[:-1]), (S_true[-1] @ torch.linalg.inv(S_true[0]))[None]])
+    w = torch.tensor([1.0] * (n - 1) + [10.0])
+    fixed = torch.arange(n) == 0
+    args = (S_est, ei, ej, meas, w, fixed)
+    cpu = optimize_pose_graph(*args)
+    card = optimize_pose_graph(*(a.to(cuda_device) for a in args))
+    assert card.is_cuda and (card.cpu() - cpu).abs().max().item() < 1e-3
+    assert (cpu[-1] - S_true[-1]).norm() < 0.1 * (S_est[-1] - S_true[-1]).norm()
+
+
+def _reloc_scene(device):
+    """An aliased keyframe whose landmarks are garbage, ranked first, then
+    the true one (tests/test_relocalization.py's first scenario), and the
+    query frame seen from a slightly moved pose."""
+    rng = np.random.default_rng(0)
+    n_feat, n_lm = 64, 48
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32)
+    X = np.stack([rng.uniform(-2, 2, n_lm), rng.uniform(-1.5, 1.5, n_lm), rng.uniform(4, 9, n_lm)], -1).astype(np.float32)
+    desc = np.where(rng.uniform(size=(n_feat, 256)) > 0.5, 1, -1).astype(np.int8)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.2, -0.1, 0.3]
+
+    def project(T_, X_):
+        pc = X_ @ T_[:3, :3].T + T_[:3, 3]
+        return (pc[:, :2] / pc[:, 2:3]) * np.diag(K)[:2] + K[:2, 2]
+
+    def frame(T_, valid):
+        xy = np.zeros((n_feat, 2), np.float32)
+        xy[:n_lm] = project(T_, X)
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        return Frame(xy=t(xy), xy_raw=t(xy), octave=t(np.zeros(n_feat, np.int32)), angle=t(np.zeros(n_feat, np.float32)),
+                     response=t(np.ones(n_feat, np.float32)), valid=t(valid),
+                     desc_packed=t(np.zeros((n_feat, 8), np.int32)), desc_pm1=t(desc))
+
+    valid = np.arange(n_feat) < n_lm
+    smap = SlamMap(k_max=8, l_max=256, f_max=n_feat, device=device)
+    obs_a = np.where(valid, np.arange(n_feat), -1).astype(np.int32)
+    kf_a = smap.add_keyframe(frame(T, valid), T, obs_a, 0)
+    valid_b = np.arange(n_feat) < 40
+    obs_b = np.where(valid_b, n_lm + np.arange(n_feat), -1).astype(np.int32)
+    kf_b = smap.add_keyframe(frame(T, valid_b), T, obs_b, 1)
+    zeros = np.zeros((n_lm, 3), np.float32)
+    for ids, pos, first in ((np.arange(n_lm), X[rng.permutation(n_lm)] + rng.normal(size=(n_lm, 3)) * 2.0, kf_a),
+                            (n_lm + np.arange(40), X[:40], kf_b)):
+        m = len(ids)
+        smap.add_landmarks(ids.astype(np.int32), pos, desc[:m], zeros[:m], np.zeros(m, np.int32),
+                           np.zeros(m, np.float32), np.full(m, np.inf, np.float32), first_kf=first)
+    T_q = T.copy()
+    T_q[:3, 3] += [0.05, 0.02, -0.04]
+
+    tracker = SimpleNamespace(map=smap, K=torch.from_numpy(K).to(device), cfg=SimpleNamespace(n_levels=4),
+                              inv_level_sigma2=torch.ones(4, device=device))
+    return tracker, frame(T_q, valid), kf_b, T_q
+
+
+def test_relocalize_card_matches_cpu(cuda_device):  # noqa: F811
+    rng = np.random.default_rng(1)
+    idx = {ci: torch.from_numpy(rng.integers(0, 40, (64, 6))) for ci in range(8)}
+    outs = []
+    for device in ("cpu", cuda_device):
+        tracker, frame, kf_b, T_q = _reloc_scene(device)
+        outs.append(relocalize(tracker, frame, sample_idx=idx))
+    (ok_c, T_c, obs_c, n_c, kf_c), (ok_g, T_g, obs_g, n_g, kf_g) = outs
+    assert ok_c and ok_g and kf_c == kf_g == kf_b and n_c == n_g >= 10
+    assert np.array_equal(obs_c, obs_g)
+    assert np.abs(T_g - T_c).max() < 1e-3 and np.abs(T_g - T_q).max() < 0.02
+
+
+def test_sim3_ransac_card_matches_cpu(cuda_device):  # noqa: F811
+    """tests/test_loop_closing.py's Sim3 RANSAC problem: 128 pairs, 20 outliers."""
+    rng = np.random.default_rng(0)
+    n = 128
+    K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]], np.float32)
+    pa = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 9, n)], -1).astype(np.float32)
+    R = exp_so3(torch.tensor([0.05, 0.2, -0.1])).numpy()
+    pb = (1.3 * pa @ R.T + np.array([0.5, -0.2, 0.8], np.float32)).astype(np.float32)
+    pb[:20] += rng.uniform(1, 3, (20, 3)).astype(np.float32)
+
+    def project(p):
+        return (p[:, :2] / p[:, 2:3] * 400.0 + [320.0, 240.0]).astype(np.float32)
+
+    ones = np.ones(n, np.float32)
+    args = (pa, pb, project(pa), project(pb), ones, ones, np.ones(n, bool), K)
+    idx = torch.from_numpy(rng.integers(0, n, (N_HYP, 3)))
+    outs = []
+    for device in ("cpu", cuda_device):
+        res = sim3_ransac(*(torch.from_numpy(a).to(device) for a in args), sample_idx=idx)
+        outs.append([r.cpu() for r in res])
+    (s_c, R_c, t_c, inl_c, n_c), (s_g, R_g, t_g, inl_g, n_g) = outs
+    assert int(n_c) == int(n_g) >= 100 and torch.equal(inl_c, inl_g)
+    assert abs(float(s_g) - float(s_c)) < 1e-3 and abs(float(s_c) - 1.3) < 0.02
+    assert (R_g - R_c).abs().max() < 1e-3 and (t_g - t_c).abs().max() < 1e-3

@@ -70,7 +70,7 @@ def _mappers(epoch):
     jmap = _copy_jax_map(snap["map"])
     tmap = map_to_torch(snap["map"])
     jl = jlm.LocalMapper(system.cfg, system.tracker.extractor)
-    tl = tlm.LocalMapper(SlamConfig(**E2E))
+    tl = tlm.LocalMapper(SlamConfig(**E2E), device="cpu")
     jl._recent_lms = list(snap["recent"])
     tl._recent_lms = list(snap["recent"])
     return jmap, tmap, jl, tl, snap["kf"]

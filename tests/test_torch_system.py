@@ -1,11 +1,18 @@
 """The port's SlamSystem end to end on the CPU, against tests/test_e2e.py's
 gates on the same sequence (strafe, 700 points, seed 3, 40 frames) and
-configuration (tests/test_e2e.py's small_config with loop closing off):
-state OK, >= 2 keyframes, > 50 landmarks, more than half the frames
-tracked, ATE < 0.05; the fused and the unfused flows each under ATE 0.05
-after 24 frames. Trajectory export and ATE evaluation match the JAX
-package's on the same trajectory: ATE within 1e-5, exported numbers within
-1e-6. Unported settings raise NotImplementedError.
+configuration (tests/test_e2e.py's small_config, loop closing on): state
+OK, >= 2 keyframes, > 50 landmarks, more than half the frames tracked, ATE
+< 0.05; the fused and the unfused flows each under ATE 0.05 after 24
+frames; lost and relocalised (tests/test_e2e.py's kidnapped camera: pose
+within 0.06 in translation and 0.05 in rotation of its earlier estimate).
+Loop closing closes nothing on the strafe, like the JAX package (0
+closures, its CPU run at this configuration), and on the port's final map
+carried across by checkpoint the JAX package detects the same candidates
+for every keyframe (on this short strafe none survives the covisibility
+and temporal guards). Checkpoints load across packages with the tables equal.
+Trajectory export and ATE evaluation match the JAX package's on the same
+trajectory: ATE within 1e-5, exported numbers within 1e-6.
+``async_mapping`` raises NotImplementedError.
 """
 
 import dataclasses
@@ -14,26 +21,31 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam_in_practice_tpu.config import SlamConfig as JaxConfig
 from orbslam_in_practice_tpu.io import evaluation as jeval
 from orbslam_in_practice_tpu.io import trajectory as jtraj
 from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
+from orbslam_in_practice_tpu.slam.loop_closing import LoopCloser as JaxLoopCloser
+from orbslam_in_practice_tpu.slam.map import SlamMap as JaxMap
+from orbslam_in_practice_tpu.utils import checkpoint as jckpt
 from orbslam_in_practice_tpu_torch import run_slam
 from orbslam_in_practice_tpu_torch.config import SlamConfig
 from orbslam_in_practice_tpu_torch.io import evaluation, trajectory
 from orbslam_in_practice_tpu_torch.slam.tracking import TrackingState, Tracking
 from orbslam_in_practice_tpu_torch.system import SlamSystem
+from orbslam_in_practice_tpu_torch.utils import checkpoint
 
 torch.set_num_threads(2)
 
 N_FRAMES = 40
 COMPARE_AT = 24  # tests/test_e2e.py's fused-vs-unfused length
+JAX_CLOSURES = 0  # the JAX package's SlamSystem on this sequence and configuration
+SMALL = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, n_features=600, n_levels=4, fps=10.0,
+             k_max=64, l_max=8192)
 
 
 def small_config():
-    return SlamConfig(
-        fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480,
-        n_features=600, n_levels=4, fps=10.0, k_max=64, l_max=8192, enable_loop_closing=False,
-    )
+    return SlamConfig(**SMALL)
 
 
 @pytest.fixture(scope="module")
@@ -121,28 +133,90 @@ def test_trajectory_export_and_ate_match_jax(tmp_path, seq, fused_run):
     assert (tmp_path / "system.txt").read_text() == (tmp_path / "direct.txt").read_text()
 
 
-@pytest.mark.parametrize("field", ["enable_loop_closing", "async_mapping"])
+@pytest.mark.parametrize("field", ["async_mapping"])
 def test_unported_settings_raise(field):
     cfg = dataclasses.replace(small_config(), **{field: True})
     with pytest.raises(NotImplementedError):
         Tracking(cfg)
 
 
-def test_lost_with_a_grown_map_raises(seq, fused_run):
-    """Relocalisation is not ported: LOST with more than 5 keyframes raises
-    instead of degrading quietly; with a young map the tracker resets."""
+def test_lost_and_relocalize(seq):
+    """tests/test_e2e.py::test_e2e_lost_and_relocalize on the port: track 28
+    frames, blind the camera until LOST, show frame 20 again and recover
+    its earlier pose, then keep tracking. A young map (<= 5 keyframes) is
+    reset instead."""
+    young = SlamSystem(small_config(), device="cpu")
+    young.tracker.state = TrackingState.LOST
+    assert young.track_monocular(seq.render(0), 0.0) is None
+    assert young.state == TrackingState.NOT_INITIALIZED and young.tracker.frame_path == "reset"
     system = SlamSystem(small_config(), device="cpu")
-    system.tracker.state = TrackingState.LOST
-    assert system.track_monocular(seq.render(0), 0.0) is None
-    assert system.state == TrackingState.NOT_INITIALIZED
-    grown = fused_run[0]
-    assert grown.map.n_kf_active() > 5
-    grown.tracker.state = TrackingState.LOST
-    try:
-        with pytest.raises(NotImplementedError, match="relocalization"):
-            grown.track_monocular(seq.render(N_FRAMES - 1), 9.9)
-    finally:
-        grown.tracker.state = TrackingState.OK
+    poses = {}
+    for i in range(28):
+        p = system.track_monocular(seq.render(i), i * 0.1)
+        if p is not None:
+            poses[i] = p
+    assert system.state == TrackingState.OK and 20 in poses and system.map.n_kf_active() > 5
+    blank = np.zeros((480, 640), np.float32)
+    for k in range(3):
+        system.track_monocular(blank, 3.0 + 0.1 * k)
+    assert system.state == TrackingState.LOST
+    p = system.track_monocular(seq.render(20), 4.0)
+    assert system.state == TrackingState.OK and system.tracker.frame_path == "reloc" and p is not None
+    assert np.abs(p[:3, 3] - poses[20][:3, 3]).max() < 0.06
+    assert np.abs(p[:3, :3] - poses[20][:3, :3]).max() < 0.05
+    assert system.tracker.last_reloc_frame_id == system.tracker.frame_id
+    p2 = system.track_monocular(seq.render(21), 4.1)
+    assert p2 is not None and system.state == TrackingState.OK
+
+
+def _jax_map_from(path, smap):
+    jmap = JaxMap(smap.k_max, smap.l_max, smap.f_max)
+    jckpt.load_map(str(path), jmap)
+    return jmap
+
+
+def test_loop_closing_on_the_strafe_matches_jax(tmp_path, fused_run):
+    system = fused_run[0]
+    closer = system.tracker.loop_closer
+    assert closer is not None and closer.n_closures == JAX_CLOSURES
+    assert closer.n_attempts > 0 and closer.stage_s["lc_detect"] > 0
+    smap = system.map
+    system.save_map(str(tmp_path / "map.npz"))
+    jmap = _jax_map_from(tmp_path / "map.npz", smap)
+    jmap.kf_gdesc = smap.hview("kf_gdesc")  # the JAX checkpoint does not hold them
+    jlc = JaxLoopCloser(JaxConfig(**SMALL))
+    for kf in smap.valid_keyframes_by_seq():
+        cands = closer.detect_candidates(smap, int(kf))
+        assert cands == jlc.detect_candidates(jmap, int(kf))
+        for c in cands:
+            assert not jlc.compute_sim3(jmap, int(kf), c)[0]
+            assert not closer.compute_sim3(smap, int(kf), c)[0]
+
+
+def test_checkpoint_loads_across_packages(tmp_path, fused_run):
+    """A map saved by the port loads in the JAX package and the reverse,
+    with every checkpointed table equal; the port's loaded map has its
+    global descriptors back and its device tables equal to host truth."""
+    system = fused_run[0]
+    smap = system.map
+    system.save_map(str(tmp_path / "port.npz"))
+    jmap = _jax_map_from(tmp_path / "port.npz", smap)
+    jckpt.save_map(str(tmp_path / "jax.npz"), jmap)
+    loaded = SlamSystem(small_config(), device="cpu")
+    loaded.load_map(str(tmp_path / "jax.npz"))
+    tmap = loaded.map
+    assert loaded.tracker.map is tmap and tmap.on_kf_removed == loaded.tracker._reanchor_trajectory
+    for name in checkpoint.ARRAY_FIELDS:
+        assert np.array_equal(jmap.hview(name), smap.hview(name)), name
+        assert np.array_equal(tmap.hview(name), smap.hview(name)), name
+    for name in checkpoint.HOST_FIELDS + ("n_kf", "n_lm", "next_kf_id", "_next_lm_uid"):
+        assert np.array_equal(getattr(jmap, name), getattr(smap, name)), name
+        assert np.array_equal(getattr(tmap, name), getattr(smap, name)), name
+    assert tmap.stats() == jmap.stats()
+    assert np.abs(tmap.hview("kf_gdesc") - smap.hview("kf_gdesc")).max() < 1e-6
+    assert np.array_equal(tmap.covisibility(), smap.covisibility())
+    for name in ("lm_pos", "kf_pose", "kf_desc_pm1"):
+        assert np.array_equal(getattr(tmap, name).numpy(), tmap.hview(name)), name
 
 
 def test_run_slam_cli(capsys):

@@ -71,6 +71,44 @@ def test_search_frame_to_kf_exact(frames):
     assert (want >= 0).sum() > 0
 
 
+def test_search_frame_to_kf_ratio_and_batch_exact(frames):
+    """Relocalisation's ratio 0.75, and a batch of keyframe lanes (the
+    reference vmaps over candidates): each lane equals its single call."""
+    f0, f2, f_rot = frames
+    n = f0.xy.shape[0]
+    lanes = [(f0, np.asarray(f0.valid) & (np.arange(n) % 3 != 0)), (f_rot, np.asarray(f_rot.valid)),
+             (f0, np.zeros(n, bool))]
+    want = [np.asarray(jm.search_frame_to_kf(f2, kf.xy, kf.angle, kf.desc_pm1, jnp.asarray(has), nn_ratio=0.75))
+            for kf, has in lanes]
+    tk = [frame_to_torch(kf) for kf, _ in lanes]
+    got = tm.search_frame_to_kf(
+        frame_to_torch(f2), torch.stack([k.xy for k in tk]), torch.stack([k.angle for k in tk]),
+        torch.stack([k.desc_pm1 for k in tk]), torch.from_numpy(np.stack([has for _, has in lanes])), nn_ratio=0.75,
+    )
+    assert np.array_equal(got.numpy(), np.stack(want))
+    assert (want[0] >= 0).sum() > 0 and (want[2] < 0).all()
+
+
+@pytest.mark.parametrize("pair", [(0, 1), (0, 2)])
+def test_match_descriptor_sets_exact(frames, pair):
+    """Keyframe-to-keyframe association at loop closing's settings (ratio
+    0.9, distance 100, rotation check); ties break as lax.top_k breaks
+    them."""
+    fa, fb = frames[pair[0]], frames[pair[1]]
+    n = fa.xy.shape[0]
+    mask_a = np.asarray(fa.valid) & (np.arange(n) % 4 != 0)
+    mask_b = np.asarray(fb.valid) & (np.arange(n) % 5 != 1)
+    want = np.asarray(jm.match_descriptor_sets(
+        fa.desc_pm1, jnp.asarray(mask_a), fb.desc_pm1, jnp.asarray(mask_b), angle_a=fa.angle, angle_b=fb.angle,
+        nn_ratio=tm.SETS_NN_RATIO, max_dist=tm.TH_HIGH, check_rotation=True,
+    ))
+    ta, tb = frame_to_torch(fa), frame_to_torch(fb)
+    got = tm.match_descriptor_sets(ta.desc_pm1, torch.from_numpy(mask_a), tb.desc_pm1, torch.from_numpy(mask_b),
+                                   ta.angle, tb.angle)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert (want >= 0).sum() > 30
+
+
 def test_rotation_consistency_ties_exact():
     """Tied bin counts: the 3 largest counts decide, so tied bins are kept
     or dropped together in both packages."""

@@ -7,6 +7,8 @@ JAX stays on the CPU (``conftest.py``).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import pytest
 import torch
@@ -65,3 +67,33 @@ def map_to_torch(jmap, device="cpu"):
 def wrapped_angle_error(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """|a - b| wrapped to [0, pi]."""
     return np.abs((a - b + np.pi) % (2 * np.pi) - np.pi)
+
+
+@contextmanager
+def injected_jax_draws(monkeypatch, module, name: str):
+    """Run the JAX package's jitted ``module.name``, which draws RANSAC
+    samples with ``jax.random.choice``, eagerly with the draws replaced by
+    numpy ones seeded by the PRNG key's seed. Yields the dict seed -> drawn
+    indices, which the port is then given. Nothing in the JAX package
+    changes; the patches end with the test."""
+    import jax
+    import jax.numpy as jnp
+
+    draws = {}
+
+    def choice(key, a, shape=(), replace=True, p=None, axis=0):
+        seed = int(np.asarray(key)[-1])  # PRNGKey(seed) is [0, seed]
+        p64 = np.asarray(p, np.float64)
+        idx = np.random.default_rng(seed).choice(int(a), size=shape, replace=replace, p=p64 / p64.sum())
+        draws[seed] = idx
+        return jnp.asarray(idx, jnp.int32)
+
+    jitted = getattr(module, name)
+
+    def eager(*args, **kwargs):
+        with jax.disable_jit():
+            return jitted(*args, **kwargs)
+
+    monkeypatch.setattr(jax.random, "choice", choice)
+    monkeypatch.setattr(module, name, eager)
+    yield draws
