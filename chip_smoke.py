@@ -28,13 +28,26 @@ closing on, relocalisation when lost):
 - ``phase_loop``: tests/test_e2e_long_sequence.py's live loop closure, a
   340-frame noisy orbit against 48 keyframe slots: tracked, slots recycled,
   at least one closure, ATE after < 0.6 of the ATE just before the first
-  closure and < 1% of the path.
+  closure and < 1% of the path;
+- ``phase_async``: ``phase_system``'s run with ``async_mapping=True``, the
+  mapping epochs in a worker thread: tracked, ATE, closures, the queue
+  throttle, the drain and the worker's shutdown; frames/s beside
+  ``phase_system``'s;
+- ``phase_dist_ba``: distributed BA over 8 landmark shards in a one-rank
+  NCCL process group (a TCPStore on 127.0.0.1): tests/test_dist_ba.py's
+  problem against the same call on the CPU without a group and against the
+  truth, then ``distributed_global_ba`` on ``phase_system``'s final map
+  (its cost must not rise);
+- ``phase_dataset``: the strafe's first 20 frames written as 8-bit PGM in a
+  TUM layout, read back with ``load_tum`` (the native loader, built in this
+  run; its prefetch queue against ``read_image``) and tracked:
+  tests/test_e2e_real_data_glue.py's gates.
 
-In every run each kernel must launch once per extraction. It prints times
-in microseconds per kernel launch and milliseconds per frame, per keyframe
-epoch and per loop closure by span, one JSON line describing the kernels
-(launches summed over the tracking step's and the three systems' runs), and
-last ``{"ok": true, "device": {...}}``.
+In every system run each kernel must launch once per extraction. It prints
+times in microseconds per kernel launch and milliseconds per frame, per
+keyframe epoch and per loop closure by span, one JSON line describing the
+kernels (launches summed over the tracking step's and every system run),
+and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero; without a CUDA device
 it exits 2 and prints no result. It imports nothing of JAX.
@@ -65,6 +78,20 @@ REFERENCE_SYSTEM_TRACKED = 58
 REFERENCE_SYSTEM_ATE = 0.015822
 REFERENCE_SYSTEM_CLOSURES = 0
 SYSTEM_FRAMES = 60
+# the JAX package's SlamSystem on the same 60 frames with async_mapping=True,
+# on the CPU, twice: 58 tracked both times, ATE 0.016642 and 0.010680 (the
+# worker's timing varies), 9 keyframes, 0 closures. The port's async run
+# must track at least 80% of the frames and stay under twice the larger ATE
+# or 0.05.
+REFERENCE_ASYNC_ATE = 0.016642
+ASYNC_MIN_TRACKED = 48
+# tests/test_dist_ba.py: its problem (seed 0, 6 cameras, 256 landmarks) over
+# 8 shards, 15 LM iterations; its gates against the truth, and the card
+# against the CPU
+DIST_SHARDS, DIST_ITERATIONS = 8, 15
+DIST_POSE_TRUTH_TOL, DIST_POINT_TRUTH_TOL, DIST_CARD_TOL = 5e-3, 3e-2, 1e-4
+# tests/test_e2e_real_data_glue.py's TUM layout and gates
+DATASET_FRAMES, DATASET_MIN_TRACKED, DATASET_MIN_ALIGNED, DATASET_ATE = 20, 15, 10, 0.10
 # tests/test_e2e.py::test_e2e_lost_and_relocalize's gates on the recovered
 # pose against the port's own estimate of the same frame
 RELOC_TRACK_FRAMES, RELOC_FRAME = 28, 20
@@ -356,7 +383,7 @@ def phase_system(device) -> dict:
     check(closer.n_attempts > 0, "no loop-closure attempt")
     check_launches(launches, calls, "the system", SYSTEM_FRAMES)
     check(out["fused_frames"] > 0, "no frame went through the fused step")
-    return launches
+    return launches, out, system
 
 
 def phase_relocalize(device) -> dict:
@@ -484,6 +511,202 @@ def phase_loop(device) -> dict:
     return launches
 
 
+def _print_paths(label: str, out: dict) -> None:
+    for what in ("frame", "keyframe"):
+        print(f"{label} {what} ms/frame by path (frames): " + ", ".join(
+            f"{k} {v:.1f} ({out[what + '_count'][k]})" for k, v in out[what + "_ms"].items() if v is not None))
+
+
+def phase_async(device, sync_out: dict) -> dict:
+    """``phase_system``'s 60 frames and configuration with
+    ``async_mapping=True``: the keyframe epochs and loop closing in the
+    worker thread. Gates: state OK, >= ASYNC_MIN_TRACKED tracked, ATE under
+    max(2 x REFERENCE_ASYNC_ATE, 0.05), no closure, never more than
+    QUEUE_MAX epochs pending, the drain within 120 s with no worker error,
+    shutdown joining the worker, each kernel launched once per extraction
+    (the worker extracts nothing)."""
+    import dataclasses
+
+    import torch
+
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+    from orbslam_in_practice_tpu_torch.run_slam import run_sequence, synthetic_config
+    from orbslam_in_practice_tpu_torch.system import SlamSystem
+
+    seq = SyntheticSequence(n_frames=SYSTEM_FRAMES)
+    system = SlamSystem(dataclasses.replace(synthetic_config(), async_mapping=True), device=device)
+    driver = system.tracker.async_driver
+    check(driver is not None and driver.is_alive(), "async_mapping started no worker")
+    calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+    with torch.no_grad():
+        reset_launches()
+        out = run_sequence(system, seq, SYSTEM_FRAMES, drain_timeout=120.0)
+        launches = read_launches()
+    print(f"async: {SYSTEM_FRAMES} frames, tracked {out['tracked']}, state {out['state']}, {out['n_kf']} keyframes, "
+          f"{out['n_lm']} landmarks, ATE {out['ate_rmse']:.6f}, {out['loop_closures']} closures; "
+          f"{out['fps']:.2f} frames/s inside track_monocular against the synchronous run's {sync_out['fps']:.2f} "
+          f"(tracked {sync_out['tracked']}, ATE {sync_out['ate_rmse']:.6f})")
+    _print_paths("async", out)
+    st = out["epoch_stage_ms"]
+    print(f"async keyframe epochs: {out['epochs']} ({out['epochs_done_while_tracking']} finished while tracking went "
+          f"on, at most {out['max_pending']} pending, drain after the last frame {out['drain_ms']:.1f} ms), "
+          "ms/epoch on the worker: " + ", ".join(f"{k} {v:.1f}" for k, v in st.items()))
+    print(f"async: launches {launches} for {len(calls)} extractions")
+    check(out["state"] == "OK", f"async ended in state {out['state']}")
+    check(out["tracked"] >= ASYNC_MIN_TRACKED, f"async tracked {out['tracked']}, fewer than {ASYNC_MIN_TRACKED}")
+    bound = max(2.0 * REFERENCE_ASYNC_ATE, 0.05)
+    check(out["ate_rmse"] < bound, f"async ATE {out['ate_rmse']} not under {bound}")
+    check(out["loop_closures"] == 0, f"async closed {out['loop_closures']} loops")
+    check(1 <= out["max_pending"] <= driver.QUEUE_MAX, f"async queue held {out['max_pending']} epochs")
+    check(system.wait_idle(120.0) and driver.idle(), "async worker not idle after the drain")
+    system.shutdown(60.0)
+    check(not driver.is_alive(), "async worker not joined by shutdown")
+    check_launches(launches, calls, "async", SYSTEM_FRAMES)
+    return launches
+
+
+def phase_dist_ba(device, system) -> None:
+    """Distributed BA over DIST_SHARDS landmark shards: tests/test_dist_ba.py's
+    problem on CPU tensors without a process group, then on the card in a
+    one-rank NCCL group (a TCPStore on 127.0.0.1): each within the test's
+    gates of the truth, the card within DIST_CARD_TOL of the CPU. Then
+    ``distributed_global_ba`` on ``system``'s final map on the card: its
+    robust cost must not rise. The group is destroyed at the end."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from orbslam_in_practice_tpu_torch.parallel.dist_ba import distributed_global_ba, map_problem, problem_cost
+    from orbslam_in_practice_tpu_torch.parallel.dist_ba_worker import make_problem, run
+    from orbslam_in_practice_tpu_torch.parallel.mesh import make_mesh
+
+    problem = dict(seed=0, n_cams=6, n_pts=256)
+    truth = make_problem(**problem)
+    cpu = run(DIST_SHARDS, "cpu", DIST_ITERATIONS, **problem)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    torch.cuda.set_device(device)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    try:
+        mesh = make_mesh(DIST_SHARDS, device)
+        check(mesh.distributed and mesh.local_shards == DIST_SHARDS, f"mesh {mesh}")
+        ms = []
+        for _ in range(2):  # the first call also sets up the NCCL communicator
+            sync(device)
+            t0 = time.perf_counter()
+            card = run(DIST_SHARDS, device, DIST_ITERATIONS, **problem)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n_pts = len(truth["points"])
+        errs = {
+            "card-cpu poses": float(np.abs(card[0] - cpu[0]).max()),
+            "card-cpu points": float(np.abs(card[1] - cpu[1]).max()),
+            "card-truth poses": float(np.abs(card[0] - truth["poses"]).max()),
+            "card-truth points": float(np.abs(card[1][:n_pts] - truth["points"]).max()),
+            "cpu-truth poses": float(np.abs(cpu[0] - truth["poses"]).max()),
+            "cpu-truth points": float(np.abs(cpu[1][:n_pts] - truth["points"]).max()),
+        }
+        print(f"dist BA: {problem['n_cams']} cameras, {n_pts} landmarks, {DIST_SHARDS} shards in a one-rank NCCL "
+              f"group, {DIST_ITERATIONS} LM iterations in {ms[1]:.1f} ms (first call, with the communicator's set-up: "
+              f"{ms[0]:.1f}; partition and transfers included); "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        for what in ("card", "cpu"):
+            check(errs[f"{what}-truth poses"] < DIST_POSE_TRUTH_TOL and errs[f"{what}-truth points"] < DIST_POINT_TRUTH_TOL,
+                  f"dist BA on the {what} not within the test's gates of the truth: {errs}")
+        check(errs["card-cpu poses"] < DIST_CARD_TOL and errs["card-cpu points"] < DIST_CARD_TOL,
+              f"dist BA on the card differs from the CPU: {errs}")
+
+        smap = system.map
+        K, inv_s2 = system.cfg.cam.K(), system.tracker.inv_level_sigma2.cpu().numpy()
+        cost0 = problem_cost(map_problem(smap, K, inv_s2, DIST_SHARDS)[0], mesh)
+        with torch.no_grad():
+            sync(device)
+            t0 = time.perf_counter()
+            n_cams, n_points, n_obs = distributed_global_ba(smap, K, inv_s2, mesh, iterations=10)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        cost1 = problem_cost(map_problem(smap, K, inv_s2, DIST_SHARDS)[0], mesh)
+        print(f"dist global BA on the system's map: {n_cams} keyframes, {n_points} landmarks, {n_obs} observations, "
+              f"{DIST_SHARDS} shards, 10 LM iterations in {ms:.1f} ms; robust cost {cost0:.2f} -> {cost1:.2f}")
+        check(n_cams >= 3 and n_points > 100 and n_obs > n_points, "dist global BA: too small a map")
+        check(math.isfinite(cost1) and cost1 <= cost0, f"dist global BA raised the cost {cost0} -> {cost1}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dataset(device) -> dict:
+    """tests/test_e2e_real_data_glue.py's TUM layout on the card: the strafe's
+    first DATASET_FRAMES frames as 8-bit PGM under a temporary directory,
+    ground truth 13 ms off the frames; ``load_tum`` decodes them with the
+    native loader (built here), whose prefetch queue must give the same
+    frames as ``read_image``; ``SlamSystem`` tracks them. Gates: tracked,
+    aligned and ATE as the test's; each kernel launched once per
+    extraction."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from orbslam_in_practice_tpu_torch.config import load_config
+    from orbslam_in_practice_tpu_torch.io import datasets, native_loader
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+    from orbslam_in_practice_tpu_torch.run_slam import run_frames
+    from orbslam_in_practice_tpu_torch.system import SlamSystem
+
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    print(f"native loader built in {time.perf_counter() - t0:.1f} s: {lib.relative_to(ROOT)}")
+    check(lib.parent == ROOT / "orbslam_in_practice_tpu_torch" / "build", f"native loader built into {lib}")
+    seq = SyntheticSequence(n_frames=DATASET_FRAMES)
+    gt = seq.gt_centers()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "rgb").mkdir()
+        rgb, truth = ["# timestamp filename"], ["# timestamp tx ty tz qx qy qz qw"]
+        for i in range(DATASET_FRAMES):
+            img = np.clip(seq.render(i), 0, 255).astype(np.uint8)
+            (d / "rgb" / f"{i:06d}.pgm").write_bytes(f"P5\n{img.shape[1]} {img.shape[0]}\n255\n".encode() + img.tobytes())
+            rgb.append(f"{1305031102.0 + 0.1 * i:.6f} rgb/{i:06d}.pgm")
+            truth.append(f"{1305031102.0 + 0.1 * i + 0.013:.6f} {gt[i][0]:.6f} {gt[i][1]:.6f} {gt[i][2]:.6f} 0 0 0 1")
+        (d / "rgb.txt").write_text("\n".join(rgb) + "\n")
+        (d / "groundtruth.txt").write_text("\n".join(truth) + "\n")
+        (d / "cam.yaml").write_text("%YAML:1.0\nCamera.fx: 500.0\nCamera.fy: 500.0\nCamera.cx: 320.0\n"
+                                    "Camera.cy: 240.0\nORBextractor.nFeatures: 800\nORBextractor.nLevels: 4\n")
+        ds = datasets.load_tum(str(d))
+        gt_ids, gt_pos = ds.gt_positions_for_frames()
+        check(len(ds) == DATASET_FRAMES and len(gt_ids) == DATASET_FRAMES, "TUM layout: frames or association lost")
+        queue = native_loader.PrefetchQueue(ds.image_paths, prefetch=4, n_threads=2)
+        order = []
+        for idx, img in queue:
+            order.append(idx)
+            check(np.array_equal(img, native_loader.read_image(ds.image_paths[idx])), f"prefetched frame {idx} differs")
+        queue.close()
+        check(order == list(range(DATASET_FRAMES)), f"prefetch order {order}")
+        system = SlamSystem(load_config(str(d / "cam.yaml")), device=device)
+        calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+        with torch.no_grad():
+            reset_launches()
+            out = run_frames(system, ds.frames(), gt_pos, gt_ids)
+            launches = read_launches()
+    print(f"dataset: TUM layout, {DATASET_FRAMES} PGM frames through load_tum and the native loader (prefetch queue "
+          f"equal to read_image), tracked {out['tracked']}, aligned {out['aligned_frames']}, ATE {out['ate_rmse']:.5f}, "
+          f"state {out['state']}, {out['fps']:.2f} frames/s inside track_monocular; launches {launches} for "
+          f"{len(calls)} extractions")
+    check(out["tracked"] >= DATASET_MIN_TRACKED, f"dataset tracked {out['tracked']}")
+    check(out["aligned_frames"] >= DATASET_MIN_ALIGNED, f"dataset aligned {out['aligned_frames']}")
+    check(out["ate_rmse"] < DATASET_ATE, f"dataset ATE {out['ate_rmse']}")
+    check_launches(launches, calls, "dataset", DATASET_FRAMES)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -523,7 +746,11 @@ def main() -> int:
                              (f"TUM1 8 levels, {tum1_config().n_features} features", tum1, tum1_config().n_features)):
         b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, label, levels, n)["max_abs_err"])
     phase_tum1(device)
-    runs = [phase_step(device), phase_system(device), phase_relocalize(device), phase_loop(device)]
+    runs = [phase_step(device)]
+    launches_system, out_system, system = phase_system(device)
+    runs += [launches_system, phase_relocalize(device), phase_loop(device), phase_async(device, out_system),
+             phase_dataset(device)]
+    phase_dist_ba(device, system)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
 
     kernels = [

@@ -31,15 +31,10 @@ import torch
 from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms_plain
 from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, select_keypoints
+from orbslam_in_practice_tpu_torch.utils.profiling import BYTES_PER_S, OPS_PER_S
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("fast_score_nms_kernel", "orb_patch_kernel")  # csrc/*.cu
-# H100 SXM peak rates: 67 TFLOP/s float32 outside the
-# tensor cores counts an FMA as 2, so one float instruction a lane a cycle
-# (sub, min, max, compare, or an FMA) issues at half that, 132 SMs x 128
-# lanes x 1.98 GHz; HBM3 3.35 TB/s
-OPS_PER_S = 67e12 / 2
-BYTES_PER_S = 3.35e12
 # kernel A's float instructions: the compass test (4 subtractions, 8
 # comparisons) on each pixel of the 3 px interior; an arc of one polarity
 # (16 FMAs for the margins, 48 min/max, 1 max with 0: arc_score) for each

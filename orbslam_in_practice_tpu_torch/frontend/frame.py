@@ -24,3 +24,7 @@ class Frame(NamedTuple):
     @property
     def n_features(self) -> int:
         return self.xy.shape[0]
+
+    def num_valid(self) -> torch.Tensor:
+        """The number of valid features, a 0-dim tensor on the frame's device."""
+        return torch.sum(self.valid)

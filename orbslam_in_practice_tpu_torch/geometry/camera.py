@@ -1,8 +1,9 @@
 """Pinhole camera with radial-tangential distortion, batched torch.
 
 Port of ``orbslam_in_practice_tpu/geometry/camera.py``: the intrinsics
-record, ``unproject`` and the 10-iteration fixed-point ``undistort_points``
-(the scheme cv::undistortPoints uses).
+record, ``project`` / ``unproject``, radtan ``distort_radtan``, the
+10-iteration fixed-point ``undistort_points`` (the scheme
+cv::undistortPoints uses) and the undistorted image bounds.
 """
 
 from __future__ import annotations
@@ -40,6 +41,26 @@ class CameraIntrinsics(NamedTuple):
         return any(abs(d) > 1e-12 for d in self.dist)
 
 
+def project(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> undistorted pixels (..., 2)."""
+    z = pts_cam[..., 2:3]
+    xy = pts_cam[..., :2] / torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
+    fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
+    return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], dim=-1)
+
+
+def distort_radtan(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Apply radtan distortion (k1, k2, p1, p2, k3) to normalized coords
+    (..., 2)."""
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def unproject(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Pixels (..., 2) -> normalized image-plane coords (..., 2)."""
     fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
@@ -68,3 +89,15 @@ def undistort_points(
         xy = torch.stack([(xy_d[..., 0] - dx) / radial, (xy_d[..., 1] - dy) / radial], dim=-1)
     fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
     return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], dim=-1)
+
+
+def compute_image_bounds(cam: CameraIntrinsics) -> tuple:
+    """Undistorted image bounds (min_x, max_x, min_y, max_y): the extremes
+    of the four undistorted corners (the image itself without distortion)."""
+    if not cam.has_distortion:
+        return 0.0, float(cam.width), 0.0, float(cam.height)
+    corners = torch.tensor(
+        [[0.0, 0.0], [cam.width, 0.0], [0.0, cam.height], [cam.width, cam.height]], dtype=torch.float32
+    )
+    und = undistort_points(cam.K(), cam.dist_tensor(), corners)
+    return float(und[:, 0].min()), float(und[:, 0].max()), float(und[:, 1].min()), float(und[:, 1].max())

@@ -1,8 +1,8 @@
 """SE(3)/SO(3) exponential maps, batched torch.
 
-Port of the part of ``orbslam_in_practice_tpu/geometry/se3.py`` that
-tracking, initialisation and mapping use. Tangent = [rho, phi]: translation first, rotation second.
-All functions broadcast over leading batch dimensions.
+Port of ``orbslam_in_practice_tpu/geometry/se3.py``. Tangent = [rho,
+phi]: translation first, rotation second. All functions broadcast over
+leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -110,6 +110,10 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (..., 4) as (w, x, y, z), normalised here -> (..., 3, 3)."""
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -122,6 +126,30 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> unit quaternion (..., 4) as (w, x, y, z),
+    w >= 0: of the four candidate formulas (one per largest diagonal term),
+    each batch entry takes its own by ``torch.where``."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(t, a, b, c, d):
+        return torch.stack([a, b, c, d], dim=-1) / torch.sqrt(torch.clamp(4.0 * t, min=_EPS))[..., None]
+
+    q0 = cand(1.0 + tr, 1.0 + tr, m21 - m12, m02 - m20, m10 - m01)
+    q1 = cand(1.0 + m00 - m11 - m22, m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20)
+    q2 = cand(1.0 + m11 - m00 - m22, m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21)
+    q3 = cand(1.0 + m22 - m00 - m11, m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11)
+    c0 = (tr > 0)[..., None]
+    c1 = ((m00 > m11) & (m00 > m22))[..., None]
+    c2 = (m11 > m22)[..., None]
+    q = torch.where(c0, q0, torch.where(c1, q1, torch.where(c2, q2, q3)))
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

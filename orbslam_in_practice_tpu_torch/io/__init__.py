@@ -1,1 +1,1 @@
-"""Synthetic rendered sequences."""
+"""Input and output: synthetic sequences, dataset loaders, the native frame loader, trajectories, ATE."""

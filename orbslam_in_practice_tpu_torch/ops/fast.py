@@ -66,3 +66,23 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     (outside the image counts as -inf)."""
     pooled = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
     return torch.where(score >= pooled, score, torch.zeros_like(score))
+
+
+def fast_corners_np(img: np.ndarray, threshold: float) -> np.ndarray:
+    """The slow numpy golden model of FAST-9: (H, W) bool, a pixel of the 3 px
+    interior is a corner when 9 contiguous circle pixels all differ from it
+    by more than ``threshold``, all brighter or all darker."""
+    h, w = img.shape
+    out = np.zeros((h, w), dtype=bool)
+    for y in range(3, h - 3):
+        for x in range(3, w - 3):
+            c = img[y, x]
+            vals = np.array([img[y + dy, x + dx] for (dx, dy) in _CIRCLE])
+            for margin in (vals - c, c - vals):
+                run, best = 0, 0
+                for v in np.concatenate([margin > threshold] * 2):
+                    run = run + 1 if v else 0
+                    best = max(best, run)
+                if best >= _ARC:
+                    out[y, x] = True
+    return out

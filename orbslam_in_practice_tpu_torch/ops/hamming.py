@@ -12,6 +12,7 @@ array recovers the reference's words.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -46,3 +47,14 @@ def hamming_matrix(pm1_a: torch.Tensor, pm1_b: torch.Tensor) -> torch.Tensor:
     """
     dot = pm1_a.to(torch.float32) @ pm1_b.to(torch.float32).transpose(-1, -2)
     return (256 - dot.to(torch.int32)) // 2
+
+
+def hamming_np(packed_a: np.ndarray, packed_b: np.ndarray) -> np.ndarray:
+    """The numpy golden model: (N, 8), (M, 8) packed words (this package's
+    int32 or the JAX package's uint32, the same bits) -> (N, M) int32
+    Hamming distances, by popcount of the XOR."""
+    def bits(p):
+        return np.unpackbits(np.ascontiguousarray(p).view(np.uint32).astype(">u4").view(np.uint8), axis=-1)
+
+    a, b = bits(packed_a), bits(packed_b)
+    return np.sum(a[:, None, :] != b[None, :, :], axis=-1).astype(np.int32)

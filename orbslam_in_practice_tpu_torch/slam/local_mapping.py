@@ -1,4 +1,4 @@
-"""Local mapping, run synchronously after each keyframe insertion.
+"""Local mapping: one epoch per keyframe, run by the tracker or its worker.
 
 Port of ``orbslam_in_practice_tpu/slam/local_mapping.py``: landmark
 invariant refresh (normals, distance ranges, distinctive descriptors), new
@@ -10,6 +10,16 @@ features and descriptors by index; the reference's ``jax.vmap`` over
 neighbour keyframes is a leading batch dimension of ``NB`` lanes (padding
 lanes carry no free features and match nothing). The host bookkeeping is
 the reference's numpy, with the same sort orders, so tie order matches.
+
+Every stage that reads the device runs in three parts, as the reference's
+do: assemble and queue the device work under ``smap.lock``; wait for the
+device and copy the results to the host with the lock released; apply
+under the lock, skipping keyframes whose slot no longer holds the same
+keyframe (``kf_seq``) and landmarks freed or recycled since (``lm_uid``).
+Device work queued under the lock reads the tables before any later
+mutation: every thread queues on the same (default) CUDA stream, in lock
+order. Local BA copies its problem to the host under the lock and solves it
+without the lock.
 
 Each stage of ``process_new_keyframe`` runs inside a
 ``torch.profiler.record_function`` span (``kf_create``, ``kf_fuse``,
@@ -188,7 +198,8 @@ def _fuse_match_neighbors(smap, pts, desc, valid, octv, nb_idx, lane_ok, K, scal
 
 
 class LocalMapper:
-    """Synchronous local-mapping pipeline driven by Tracking."""
+    """The local-mapping pipeline, run by Tracking after each keyframe
+    insertion or by the asynchronous worker (``slam/async_mapping.py``)."""
 
     def __init__(self, config, device: torch.device | str = "cuda"):
         self.cfg = config
@@ -220,45 +231,62 @@ class LocalMapper:
             yield
         self.stage_s[name] += time.perf_counter() - t0
 
+    def _device_get(self, *tensors) -> tuple:
+        """A stage's results on the host: the wait for the device, made with
+        the map lock released."""
+        return tuple(t.cpu().numpy() for t in tensors)
+
+    @staticmethod
+    def _live_keyframes(smap, seqs: dict) -> set:
+        """The slots of ``seqs`` (slot -> kf_seq at dispatch) that still hold
+        the same keyframe: neither removed nor reused since."""
+        kf_valid = smap.kf_valid_host()
+        return {k for k, q in seqs.items() if kf_valid[k] and int(smap.kf_seq[k]) == q}
+
     # ---------- landmark invariant refresh ----------
 
     def refresh_landmarks(self, smap, lm_ids: np.ndarray):
         """Recompute normal / distance range / distinctive descriptor of the
         given landmarks from their current observations (landmarks without
-        any keep theirs)."""
+        any keep theirs, as do landmarks freed or recycled meanwhile)."""
         if len(lm_ids) == 0:
             return
         lm_ids = np.asarray(lm_ids)
         with smap.lock:
-            kf_idx, feat_idx, which = smap.observations_of(lm_ids)
-            L = len(lm_ids)
-            obs_kf = np.zeros((L, O_MAX), np.int64)
-            obs_feat = np.zeros((L, O_MAX), np.int64)
-            obs_val = np.zeros((L, O_MAX), bool)
-            if len(which):
-                # slot = rank of each observation within its landmark group
-                order = np.argsort(which, kind="stable")
-                sw = which[order]
-                group_start = np.zeros(len(sw), np.int64)
-                new_grp = np.nonzero(np.r_[True, sw[1:] != sw[:-1]])[0]
-                group_start[new_grp] = np.arange(len(sw))[new_grp]
-                group_start = np.maximum.accumulate(group_start)
-                slot = np.arange(len(sw)) - group_start
-                keep = slot < O_MAX
-                li, sl = sw[keep], slot[keep]
-                obs_kf[li, sl] = kf_idx[order][keep]
-                obs_feat[li, sl] = feat_idx[order][keep]
-                obs_val[li, sl] = True
-            has_obs = obs_val.any(axis=1)
-            dev = self.device
-            outs = _landmark_invariants(
-                smap.lm_pos[torch.from_numpy(lm_ids.astype(np.int64)).to(dev)],
-                smap.kf_pose, smap.kf_desc_pm1, smap.kf_octave,
-                torch.from_numpy(obs_kf).to(dev), torch.from_numpy(obs_feat).to(dev),
-                torch.from_numpy(obs_val).to(dev), self.cfg.scale_factor, self.cfg.n_levels,
-            )
-            normal, min_d, max_d, desc, oct_ref = (o.cpu().numpy() for o in outs)
-            smap.write_landmark_invariants(lm_ids, normal, min_d, max_d, desc, oct_ref, has_obs)
+            outs, has_obs, uids = self._refresh_dispatch(smap, lm_ids)
+        normal, min_d, max_d, desc, oct_ref = self._device_get(*outs)
+        with smap.lock:
+            live = has_obs & (smap.lm_uid[lm_ids] == uids)
+            smap.write_landmark_invariants(lm_ids, normal, min_d, max_d, desc, oct_ref, live)
+
+    def _refresh_dispatch(self, smap, lm_ids: np.ndarray):
+        kf_idx, feat_idx, which = smap.observations_of(lm_ids)
+        L = len(lm_ids)
+        obs_kf = np.zeros((L, O_MAX), np.int64)
+        obs_feat = np.zeros((L, O_MAX), np.int64)
+        obs_val = np.zeros((L, O_MAX), bool)
+        if len(which):
+            # slot = rank of each observation within its landmark group
+            order = np.argsort(which, kind="stable")
+            sw = which[order]
+            group_start = np.zeros(len(sw), np.int64)
+            new_grp = np.nonzero(np.r_[True, sw[1:] != sw[:-1]])[0]
+            group_start[new_grp] = np.arange(len(sw))[new_grp]
+            group_start = np.maximum.accumulate(group_start)
+            slot = np.arange(len(sw)) - group_start
+            keep = slot < O_MAX
+            li, sl = sw[keep], slot[keep]
+            obs_kf[li, sl] = kf_idx[order][keep]
+            obs_feat[li, sl] = feat_idx[order][keep]
+            obs_val[li, sl] = True
+        dev = self.device
+        outs = _landmark_invariants(
+            smap.lm_pos[torch.from_numpy(lm_ids.astype(np.int64)).to(dev)],
+            smap.kf_pose, smap.kf_desc_pm1, smap.kf_octave,
+            torch.from_numpy(obs_kf).to(dev), torch.from_numpy(obs_feat).to(dev),
+            torch.from_numpy(obs_val).to(dev), self.cfg.scale_factor, self.cfg.n_levels,
+        )
+        return outs, obs_val.any(axis=1), smap.lm_uid[lm_ids].copy()
 
     # ---------- new map point creation ----------
 
@@ -267,84 +295,102 @@ class LocalMapper:
         covisible neighbours, all neighbours in one batch. The first
         accepting neighbour (in covisibility order) claims a feature."""
         with smap.lock:
-            covis = smap.covisibility()
-            if smap.n_kf_active() < 2:
-                return 0
-            row = covis[kf_id].copy()
-            order = np.argsort(-row)
-            neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 10 and i != kf_id]
-            kf_pose_h = smap.hview("kf_pose")
-            obs_all = smap.hview("kf_obs")
-            T1 = kf_pose_h[kf_id]
-            c1 = -T1[:3, :3].T @ T1[:3, 3]
-            lanes = []
-            for nb in neighbors:
-                T2 = kf_pose_h[nb]
-                # baseline gate: skip a neighbour whose baseline is under 1%
-                # of its median scene depth (degenerate epipolar geometry)
-                c2 = -T2[:3, :3].T @ T2[:3, 3]
-                baseline = float(np.linalg.norm(c1 - c2))
-                nb_lms = smap.keyframe_landmarks(nb)
-                if len(nb_lms):
-                    pos_nb = smap.hview("lm_pos")[nb_lms]
-                    z_nb = (pos_nb @ T2[:3, :3].T + T2[:3, 3])[:, 2]
-                    z_med = float(np.median(z_nb[z_nb > 0])) if (z_nb > 0).any() else 0.0
-                else:
-                    z_med = 0.0
-                if z_med <= 0.0 or baseline / z_med < 0.01:
-                    continue
-                # permissive descriptor threshold only where the baseline
-                # makes the epipolar constraint selective
-                lanes.append((nb, TH_HIGH if baseline / z_med > 0.04 else TH_LOW))
-            if not lanes:
-                return 0
+            disp = self._create_dispatch(smap, kf_id)
+        if disp is None:
+            return 0
+        outs, lanes, free1, seqs = disp
+        m_all, Xw_all, acc_all = self._device_get(*outs)
+        with smap.lock:
+            return self._create_apply(smap, kf_id, lanes, free1, seqs, m_all, Xw_all, acc_all)
 
-            NB, F = N_NEIGHBORS, smap.f_max
-            fv_all = smap.hview("kf_feat_valid")
-            free1 = fv_all[kf_id] & (obs_all[kf_id] < 0)
-            nb_free = np.zeros((NB, F), bool)
-            nb_th = np.full(NB, TH_LOW, np.int64)
-            nb_idx = np.zeros(NB, np.int64)  # padding lanes gather row 0, all not free
-            for i, (nb, th) in enumerate(lanes):
-                nb_free[i] = fv_all[nb] & (obs_all[nb] < 0)
-                nb_th[i] = th
-                nb_idx[i] = nb
-            dev = self.device
-            m_all, Xw_all, acc_all = _match_triangulate_neighbors(
-                smap, kf_id, torch.from_numpy(free1).to(dev), torch.from_numpy(nb_idx).to(dev),
-                torch.from_numpy(nb_free).to(dev), torch.from_numpy(nb_th).to(dev),
-                self.K, self.inv_level_sigma2_t,
+    def _create_dispatch(self, smap, kf_id: int):
+        if not smap.kf_valid_host()[kf_id] or smap.n_kf_active() < 2:
+            return None
+        row = smap.covisibility()[kf_id].copy()
+        order = np.argsort(-row)
+        neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 10 and i != kf_id]
+        kf_pose_h = smap.hview("kf_pose")
+        obs_all = smap.hview("kf_obs")
+        T1 = kf_pose_h[kf_id]
+        c1 = -T1[:3, :3].T @ T1[:3, 3]
+        lanes = []
+        for nb in neighbors:
+            T2 = kf_pose_h[nb]
+            # baseline gate: skip a neighbour whose baseline is under 1%
+            # of its median scene depth (degenerate epipolar geometry)
+            c2 = -T2[:3, :3].T @ T2[:3, 3]
+            baseline = float(np.linalg.norm(c1 - c2))
+            nb_lms = smap.keyframe_landmarks(nb)
+            if len(nb_lms):
+                pos_nb = smap.hview("lm_pos")[nb_lms]
+                z_nb = (pos_nb @ T2[:3, :3].T + T2[:3, 3])[:, 2]
+                z_med = float(np.median(z_nb[z_nb > 0])) if (z_nb > 0).any() else 0.0
+            else:
+                z_med = 0.0
+            if z_med <= 0.0 or baseline / z_med < 0.01:
+                continue
+            # permissive descriptor threshold only where the baseline
+            # makes the epipolar constraint selective
+            lanes.append((nb, TH_HIGH if baseline / z_med > 0.04 else TH_LOW))
+        if not lanes:
+            return None
+
+        NB, F = N_NEIGHBORS, smap.f_max
+        fv_all = smap.hview("kf_feat_valid")
+        free1 = fv_all[kf_id] & (obs_all[kf_id] < 0)
+        nb_free = np.zeros((NB, F), bool)
+        nb_th = np.full(NB, TH_LOW, np.int64)
+        nb_idx = np.zeros(NB, np.int64)  # padding lanes gather row 0, all not free
+        for i, (nb, th) in enumerate(lanes):
+            nb_free[i] = fv_all[nb] & (obs_all[nb] < 0)
+            nb_th[i] = th
+            nb_idx[i] = nb
+        dev = self.device
+        outs = _match_triangulate_neighbors(
+            smap, kf_id, torch.from_numpy(free1).to(dev), torch.from_numpy(nb_idx).to(dev),
+            torch.from_numpy(nb_free).to(dev), torch.from_numpy(nb_th).to(dev),
+            self.K, self.inv_level_sigma2_t,
+        )
+        seqs = {k: int(smap.kf_seq[k]) for k in [kf_id] + [nb for nb, _ in lanes]}
+        return outs, lanes, free1, seqs
+
+    def _create_apply(self, smap, kf_id, lanes, free1, seqs, m_all, Xw_all, acc_all) -> int:
+        live = self._live_keyframes(smap, seqs)
+        if kf_id not in live:
+            return 0
+        obs_all = smap.hview("kf_obs")
+        oct1 = smap.hview("kf_octave")[kf_id].copy()
+        desc_all = smap.hview("kf_desc_pm1")
+        n_created = 0
+        # freeness from current host truth: tracking may have bound features
+        # while the device worked
+        claimed = ~(free1 & (obs_all[kf_id] < 0))
+        seq = seqs[kf_id]
+        for i, (nb, _) in enumerate(lanes):
+            if nb not in live:
+                continue
+            nb_free_now = obs_all[nb, np.maximum(m_all[i], 0)] < 0
+            new_feats = np.nonzero(acc_all[i] & ~claimed & nb_free_now)[0]
+            if len(new_feats) == 0:
+                continue
+            ids = smap.allocate_landmarks(len(new_feats))
+            if len(ids) < len(new_feats):  # capacity: keep what fits
+                new_feats = new_feats[: len(ids)]
+                if len(ids) == 0:
+                    continue
+            claimed[new_feats] = True
+            # provisional invariants, refreshed at the end of the epoch
+            smap.add_landmarks(
+                ids, Xw_all[i][new_feats], desc_all[kf_id][new_feats],
+                np.zeros((len(ids), 3), np.float32), oct1[new_feats],
+                np.zeros(len(ids), np.float32), np.full(len(ids), np.inf, np.float32),
+                first_kf=kf_id,
             )
-            m_all, Xw_all, acc_all = m_all.cpu().numpy(), Xw_all.cpu().numpy(), acc_all.cpu().numpy()
-
-            oct1 = smap.hview("kf_octave")[kf_id].copy()
-            desc_all = smap.hview("kf_desc_pm1")
-            n_created = 0
-            claimed = ~free1
-            seq = int(smap.kf_seq[kf_id])
-            for i, (nb, _) in enumerate(lanes):
-                nb_free_now = obs_all[nb, np.maximum(m_all[i], 0)] < 0
-                new_feats = np.nonzero(acc_all[i] & ~claimed & nb_free_now)[0]
-                if len(new_feats) == 0:
-                    continue
-                ids = smap.allocate_landmarks(len(new_feats))
-                if len(ids) < len(new_feats):  # capacity: keep what fits
-                    new_feats = new_feats[: len(ids)]
-                    if len(ids) == 0:
-                        continue
-                claimed[new_feats] = True
-                # provisional invariants, refreshed at the end of the epoch
-                smap.add_landmarks(
-                    ids, Xw_all[i][new_feats], desc_all[kf_id][new_feats],
-                    np.zeros((len(ids), 3), np.float32), oct1[new_feats],
-                    np.zeros(len(ids), np.float32), np.full(len(ids), np.inf, np.float32),
-                    first_kf=kf_id,
-                )
-                smap.add_observations(kf_id, new_feats, ids)
-                smap.add_observations(nb, m_all[i][new_feats], ids)
-                self._recent_lms.extend((int(i_), int(smap.lm_uid[i_]), seq) for i_ in ids)
-                n_created += len(ids)
-            return n_created
+            smap.add_observations(kf_id, new_feats, ids)
+            smap.add_observations(nb, m_all[i][new_feats], ids)
+            self._recent_lms.extend((int(i_), int(smap.lm_uid[i_]), seq) for i_ in ids)
+            n_created += len(ids)
+        return n_created
 
     # ---------- local BA ----------
 
@@ -352,81 +398,108 @@ class LocalMapper:
         """Windowed local BA: the new keyframe + its most covisible
         neighbours are free; other keyframes observing the window's
         landmarks, and the window's oldest keyframe (the gauge), are fixed.
-        Writes back poses and positions and scrubs outlier observations
-        (chi2 > 5.991)."""
+        The problem is copied off the map under the lock and solved without
+        it. Writes back the poses of keyframes still in their slots and the
+        positions of landmarks not recycled meanwhile, and scrubs outlier
+        observations (chi2 > 5.991) whose binding is unchanged."""
         with smap.lock:
-            covis = smap.covisibility()
-            row = covis[kf_id]
-            order = np.argsort(-row)
-            window = [kf_id] + [int(i) for i in order[: self.cfg.local_window - 1] if row[i] >= 15 and i != kf_id]
-            if len(window) < 2:
-                return
-            lm_ids = np.unique(np.concatenate([smap.keyframe_landmarks(k) for k in window]))
-            if len(lm_ids) == 0:
-                return
-            if len(lm_ids) > self.ba_l_cap:
-                # hard cap: keep the landmarks with the most observations
-                self.n_ba_truncations += 1
-                _LOG.warning("local BA landmark hard cap: %d -> %d (kf %d)", len(lm_ids), self.ba_l_cap, kf_id)
-                order = np.argsort(-smap.lm_obs_count[lm_ids], kind="stable")
-                lm_ids = np.sort(lm_ids[order[: self.ba_l_cap]])
-            kf_idx, feat_idx, which = smap.observations_of(lm_ids)
-            in_window = np.isin(kf_idx, window)
-            fixed_kfs = np.unique(kf_idx[~in_window])
-            cams = (list(window) + [int(k) for k in fixed_kfs])[: self.ba_k]
-            cam_slot = {k: i for i, k in enumerate(cams)}
-            fixed = np.array([k not in window for k in cams])
-            oldest = min(window, key=lambda k: smap.kf_seq[k])
-            fixed[cam_slot[oldest]] = True
-            if not fixed.any() or len(cams) == 1:
-                return
-            keep = np.isin(kf_idx, cams)
-            kf_idx, feat_idx, which = kf_idx[keep], feat_idx[keep], which[keep]
-            if len(kf_idx) == 0:
-                return
-            obs_oct = smap.hview("kf_octave")[kf_idx, feat_idx]
-            # strongest observations first (window cameras, then covisibility
-            # with the new keyframe, then finer octave), so every clip below
-            # keeps the strongest edges
-            covis_w = covis[kf_id][kf_idx].astype(np.float64)
-            covis_w[in_window[keep]] += 1e9
-            order = np.lexsort((obs_oct, -covis_w))
-            kf_idx, feat_idx, which, obs_oct = kf_idx[order], feat_idx[order], which[order], obs_oct[order]
-            if len(kf_idx) > self.ba_o_cap:
-                self.n_ba_truncations += 1
-                _LOG.warning("local BA observation hard cap: %d -> %d (kf %d)", len(kf_idx), self.ba_o_cap, kf_id)
-            n_obs = min(len(kf_idx), self.ba_o_cap)
-            kf_idx, feat_idx, which, obs_oct = kf_idx[:n_obs], feat_idx[:n_obs], which[:n_obs], obs_oct[:n_obs]
-            obs_cam = np.array([cam_slot[int(k)] for k in kf_idx], np.int64)
-            obs_uv = smap.hview("kf_xy")[kf_idx, feat_idx]
-            inv_s2 = self._inv_s2[obs_oct.clip(0, len(self.scale_factors) - 1)]
-            max_count = int(np.bincount(which, minlength=1).max())
-            o_max = adaptive_o_max(max_count, O_MAX, cap=48)
-            dropped = count_obs_drops(which, len(lm_ids), o_max)
-            if dropped:
-                self.n_ba_obs_drops += dropped
-                _LOG.warning("local BA dropped %d observations beyond o_max=%d (kf %d)", dropped, o_max, kf_id)
-
-            dev = self.device
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-            prob = BAProblem(
-                poses=t(smap.hview("kf_pose")[cams]),
-                points=t(smap.hview("lm_pos")[lm_ids]),
-                obs_cam=t(obs_cam),
-                obs_point=t(which.astype(np.int64)),
-                obs_uv=t(obs_uv.astype(np.float32)),
-                obs_inv_sigma2=t(inv_s2.astype(np.float32)),
-                obs_mask=torch.ones(n_obs, dtype=torch.bool, device=dev),
-                point_obs=t(build_point_obs(which, len(lm_ids), o_max).astype(np.int64)),
-                fixed_cam=t(fixed),
-                K=self.K,
-            )
-            poses_new, points_new, chi2 = bundle_adjustment(prob, iterations=LOCAL_BA_ITERATIONS)
-            smap.set_kf_poses(cams, poses_new.cpu().numpy())
-            smap.set_landmark_positions(lm_ids, points_new.cpu().numpy())
-            bad = chi2.cpu().numpy() > 5.991
+            disp = self._ba_dispatch(smap, kf_id)
+        if disp is None:
+            return
+        arrays, (cams, seqs, lm_ids, lm_uids, kf_idx, feat_idx, which, obs_cam) = disp
+        dev = self.device
+        prob = BAProblem(
+            **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()}, K=self.K
+        )
+        poses_new, points_new, chi2 = self._device_get(*bundle_adjustment(prob, iterations=LOCAL_BA_ITERATIONS))
+        with smap.lock:
+            live = self._live_keyframes(smap, dict(zip(cams, seqs)))
+            sel = [i for i, k in enumerate(cams) if k in live]
+            if sel:
+                smap.set_kf_poses([cams[i] for i in sel], poses_new[sel])
+            same = smap.lm_uid[lm_ids] == lm_uids
+            smap.set_landmark_positions(lm_ids[same], points_new[same])
+            bad = chi2 > 5.991
             if bad.any():
-                smap.scrub_observations(kf_idx[bad], feat_idx[bad])
+                k, f = kf_idx[bad], feat_idx[bad]
+                ok = (
+                    smap.kf_valid_host()[k]
+                    & (smap.kf_seq[k] == np.asarray(seqs)[obs_cam[bad]])
+                    & (smap.kf_obs_host()[k, f] == lm_ids[which[bad]])
+                )
+                if ok.any():
+                    smap.scrub_observations(k[ok], f[ok])
+
+    def _ba_dispatch(self, smap, kf_id: int):
+        """The local-BA problem as host arrays, and what the apply checks:
+        (cams, their kf_seq, lm_ids, their lm_uid, and per observation its
+        keyframe, feature, landmark index and camera slot)."""
+        if not smap.kf_valid_host()[kf_id]:
+            return None
+        covis = smap.covisibility()
+        row = covis[kf_id]
+        order = np.argsort(-row)
+        window = [kf_id] + [int(i) for i in order[: self.cfg.local_window - 1] if row[i] >= 15 and i != kf_id]
+        if len(window) < 2:
+            return None
+        lm_ids = np.unique(np.concatenate([smap.keyframe_landmarks(k) for k in window]))
+        if len(lm_ids) == 0:
+            return None
+        if len(lm_ids) > self.ba_l_cap:
+            # hard cap: keep the landmarks with the most observations
+            self.n_ba_truncations += 1
+            _LOG.warning("local BA landmark hard cap: %d -> %d (kf %d)", len(lm_ids), self.ba_l_cap, kf_id)
+            order = np.argsort(-smap.lm_obs_count[lm_ids], kind="stable")
+            lm_ids = np.sort(lm_ids[order[: self.ba_l_cap]])
+        kf_idx, feat_idx, which = smap.observations_of(lm_ids)
+        in_window = np.isin(kf_idx, window)
+        fixed_kfs = np.unique(kf_idx[~in_window])
+        cams = (list(window) + [int(k) for k in fixed_kfs])[: self.ba_k]
+        cam_slot = {k: i for i, k in enumerate(cams)}
+        fixed = np.array([k not in window for k in cams])
+        oldest = min(window, key=lambda k: smap.kf_seq[k])
+        fixed[cam_slot[oldest]] = True
+        if not fixed.any() or len(cams) == 1:
+            return None
+        keep = np.isin(kf_idx, cams)
+        kf_idx, feat_idx, which = kf_idx[keep], feat_idx[keep], which[keep]
+        if len(kf_idx) == 0:
+            return None
+        obs_oct = smap.hview("kf_octave")[kf_idx, feat_idx]
+        # strongest observations first (window cameras, then covisibility
+        # with the new keyframe, then finer octave), so every clip below
+        # keeps the strongest edges
+        covis_w = covis[kf_id][kf_idx].astype(np.float64)
+        covis_w[in_window[keep]] += 1e9
+        order = np.lexsort((obs_oct, -covis_w))
+        kf_idx, feat_idx, which, obs_oct = kf_idx[order], feat_idx[order], which[order], obs_oct[order]
+        if len(kf_idx) > self.ba_o_cap:
+            self.n_ba_truncations += 1
+            _LOG.warning("local BA observation hard cap: %d -> %d (kf %d)", len(kf_idx), self.ba_o_cap, kf_id)
+        n_obs = min(len(kf_idx), self.ba_o_cap)
+        kf_idx, feat_idx, which, obs_oct = kf_idx[:n_obs], feat_idx[:n_obs], which[:n_obs], obs_oct[:n_obs]
+        obs_cam = np.array([cam_slot[int(k)] for k in kf_idx], np.int64)
+        inv_s2 = self._inv_s2[obs_oct.clip(0, len(self.scale_factors) - 1)]
+        max_count = int(np.bincount(which, minlength=1).max())
+        o_max = adaptive_o_max(max_count, O_MAX, cap=48)
+        dropped = count_obs_drops(which, len(lm_ids), o_max)
+        if dropped:
+            self.n_ba_obs_drops += dropped
+            _LOG.warning("local BA dropped %d observations beyond o_max=%d (kf %d)", dropped, o_max, kf_id)
+        which = which.astype(np.int64)
+        arrays = dict(
+            poses=smap.hview("kf_pose")[cams],
+            points=smap.hview("lm_pos")[lm_ids],
+            obs_cam=obs_cam,
+            obs_point=which,
+            obs_uv=smap.hview("kf_xy")[kf_idx, feat_idx].astype(np.float32),
+            obs_inv_sigma2=inv_s2.astype(np.float32),
+            obs_mask=np.ones(n_obs, bool),
+            point_obs=build_point_obs(which, len(lm_ids), o_max).astype(np.int64),
+            fixed_cam=fixed,
+        )
+        seqs = [int(smap.kf_seq[k]) for k in cams]
+        return arrays, (cams, seqs, lm_ids, smap.lm_uid[lm_ids].copy(), kf_idx, feat_idx, which, obs_cam)
 
     # ---------- fusion ----------
 
@@ -439,65 +512,86 @@ class LocalMapper:
         neighbourhood, so the revisit's duplicate landmarks merge into the
         corrected originals (SearchAndFuse)."""
         with smap.lock:
-            if neighbors is None:
-                row = smap.covisibility()[kf_id]
-                order = np.argsort(-row)
-                neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 15 and i != kf_id]
-            else:
-                neighbors = [int(i) for i in neighbors[:N_NEIGHBORS] if i != kf_id]
-            lm_ids = smap.keyframe_landmarks(kf_id)
-            if len(lm_ids) == 0 or not neighbors:
-                return 0
-            pad = smap.f_max
-            ids_pad = np.zeros(pad, np.int64)
-            ids_pad[: min(len(lm_ids), pad)] = lm_ids[:pad]
-            base_valid = (np.arange(pad) < len(lm_ids)) & smap.hview("lm_valid")[ids_pad]
-            nb_idx = np.zeros(N_NEIGHBORS, np.int64)
-            nb_idx[: len(neighbors)] = neighbors
-            dev = self.device
-            ids_t = torch.from_numpy(ids_pad).to(dev)
-            m_all = _fuse_match_neighbors(
-                smap, smap.lm_pos[ids_t], smap.lm_desc_pm1[ids_t], torch.from_numpy(base_valid).to(dev),
-                smap.lm_octave[ids_t], torch.from_numpy(nb_idx).to(dev),
-                torch.arange(N_NEIGHBORS, device=dev) < len(neighbors), self.K, self.scale_factors_t,
-            ).cpu().numpy()
+            disp = self._fuse_dispatch(smap, kf_id, neighbors)
+        if disp is None:
+            return 0
+        m_dev, neighbors, ids_pad, uids_pad, seqs = disp
+        (m_all,) = self._device_get(m_dev)
+        with smap.lock:
+            return self._fuse_apply(smap, kf_id, neighbors, ids_pad, uids_pad, seqs, m_all)
 
-            kf_pose_h = smap.hview("kf_pose")
-            lm_valid_now = smap.lm_valid_host()[ids_pad]
-            n_fused = 0
-            for i, nb in enumerate(neighbors):
-                m_h = m_all[i]
-                obs_b = smap.hview("kf_obs")[nb]
-                hit = np.nonzero((m_h >= 0) & lm_valid_now)[0]
-                lms = ids_pad[hit]
-                feats = m_h[hit]
-                existing = obs_b[feats]
-                free = existing < 0
-                if free.any():
-                    smap.add_observations(nb, feats[free], lms[free])
-                    n_fused += int(free.sum())
-                # merge only true duplicates: the two points agree within 5%
-                # of viewing depth
-                conf_lm = lms[~free]
-                conf_ex = existing[~free]
-                if len(conf_lm):
-                    lm_pos_live = smap.hview("lm_pos")
-                    T_nb = kf_pose_h[nb]
-                    X_lm = lm_pos_live[conf_lm]
-                    X_ex = lm_pos_live[conf_ex]
-                    depth = (X_ex @ T_nb[:3, :3].T + T_nb[:3, 3])[:, 2]
-                    agree = np.linalg.norm(X_lm - X_ex, axis=1) < 0.05 * np.maximum(depth, 1e-3)
-                    for lm, ex, ok_ in zip(conf_lm, conf_ex, agree):
-                        lm, ex = int(lm), int(ex)
-                        if ex == lm or not ok_:
-                            continue
-                        if smap.lm_obs_count[ex] >= smap.lm_obs_count[lm]:
-                            smap.replace_landmark(lm, ex)
-                        else:
-                            smap.replace_landmark(ex, lm)
-                        n_fused += 1
-                        self.n_fuse_merges += 1
-            return n_fused
+    def _fuse_dispatch(self, smap, kf_id: int, neighbors):
+        if not smap.kf_valid_host()[kf_id]:
+            return None
+        if neighbors is None:
+            row = smap.covisibility()[kf_id]
+            order = np.argsort(-row)
+            neighbors = [int(i) for i in order[:N_NEIGHBORS] if row[i] >= 15 and i != kf_id]
+        else:
+            neighbors = [int(i) for i in neighbors[:N_NEIGHBORS] if i != kf_id]
+        lm_ids = smap.keyframe_landmarks(kf_id)
+        if len(lm_ids) == 0 or not neighbors:
+            return None
+        pad = smap.f_max
+        ids_pad = np.zeros(pad, np.int64)
+        ids_pad[: min(len(lm_ids), pad)] = lm_ids[:pad]
+        base_valid = (np.arange(pad) < len(lm_ids)) & smap.hview("lm_valid")[ids_pad]
+        nb_idx = np.zeros(N_NEIGHBORS, np.int64)
+        nb_idx[: len(neighbors)] = neighbors
+        dev = self.device
+        ids_t = torch.from_numpy(ids_pad).to(dev)
+        m_dev = _fuse_match_neighbors(
+            smap, smap.lm_pos[ids_t], smap.lm_desc_pm1[ids_t], torch.from_numpy(base_valid).to(dev),
+            smap.lm_octave[ids_t], torch.from_numpy(nb_idx).to(dev),
+            torch.arange(N_NEIGHBORS, device=dev) < len(neighbors), self.K, self.scale_factors_t,
+        )
+        seqs = {k: int(smap.kf_seq[k]) for k in [kf_id] + neighbors}
+        return m_dev, neighbors, ids_pad, smap.lm_uid[ids_pad].copy(), seqs
+
+    def _fuse_apply(self, smap, kf_id, neighbors, ids_pad, uids_pad, seqs, m_all) -> int:
+        live = self._live_keyframes(smap, seqs)
+        if kf_id not in live:
+            return 0
+        kf_pose_h = smap.hview("kf_pose")
+        # a landmark freed or recycled while the device worked takes no
+        # match results
+        lm_valid_now = smap.lm_valid_host()[ids_pad] & (smap.lm_uid[ids_pad] == uids_pad)
+        n_fused = 0
+        for i, nb in enumerate(neighbors):
+            if nb not in live:
+                continue
+            m_h = m_all[i]
+            obs_b = smap.hview("kf_obs")[nb]
+            hit = np.nonzero((m_h >= 0) & lm_valid_now)[0]
+            lms = ids_pad[hit]
+            feats = m_h[hit]
+            existing = obs_b[feats]
+            free = existing < 0
+            if free.any():
+                smap.add_observations(nb, feats[free], lms[free])
+                n_fused += int(free.sum())
+            # merge only true duplicates: the two points agree within 5%
+            # of viewing depth
+            conf_lm = lms[~free]
+            conf_ex = existing[~free]
+            if len(conf_lm):
+                lm_pos_live = smap.hview("lm_pos")
+                T_nb = kf_pose_h[nb]
+                X_lm = lm_pos_live[conf_lm]
+                X_ex = lm_pos_live[conf_ex]
+                depth = (X_ex @ T_nb[:3, :3].T + T_nb[:3, 3])[:, 2]
+                agree = np.linalg.norm(X_lm - X_ex, axis=1) < 0.05 * np.maximum(depth, 1e-3)
+                for lm, ex, ok_ in zip(conf_lm, conf_ex, agree):
+                    lm, ex = int(lm), int(ex)
+                    if ex == lm or not ok_:
+                        continue
+                    if smap.lm_obs_count[ex] >= smap.lm_obs_count[lm]:
+                        smap.replace_landmark(lm, ex)
+                    else:
+                        smap.replace_landmark(ex, lm)
+                    n_fused += 1
+                    self.n_fuse_merges += 1
+        return n_fused
 
     # ---------- culling ----------
 
@@ -525,10 +619,15 @@ class LocalMapper:
     def cull_keyframes(self, smap, kf_id: int) -> int:
         """Remove a covisible keyframe when > 90% of its landmarks are seen
         by >= 3 other keyframes at the same or a finer octave; the two
-        initial keyframes (by seq) are exempt."""
+        initial keyframes (by seq) are exempt, and so are keyframes inserted
+        after ``kf_id``: with asynchronous mapping those still wait for
+        their own epoch (in ORB-SLAM they are not in the graph yet)."""
         with smap.lock:
             covis = smap.covisibility()
-            candidates = [int(j) for j in np.nonzero(covis[kf_id] >= 15)[0] if smap.kf_seq[j] >= 2 and j != kf_id]
+            cur_seq = int(smap.kf_seq[kf_id])
+            candidates = [
+                int(j) for j in np.nonzero(covis[kf_id] >= 15)[0] if 2 <= smap.kf_seq[j] < cur_seq and j != kf_id
+            ]
             if not candidates:
                 return 0
             obs_all = smap.hview("kf_obs")[: smap.n_kf].copy()
@@ -572,14 +671,22 @@ class LocalMapper:
 
     # ---------- entry point ----------
 
-    def process_new_keyframe(self, smap, kf_id: int):
+    def process_new_keyframe(self, smap, kf_id: int, kf_seq: int | None = None) -> bool:
         """One keyframe epoch: cull recent landmarks, make room in the
         landmark table, create new points, fuse, local BA, cull keyframes,
-        and refresh the keyframe's landmark invariants once at the end."""
-        self.n_epochs += 1
+        and refresh the keyframe's landmark invariants once at the end.
+
+        Each stage takes the map lock for its own assembly and apply only.
+        ``kf_seq``, the keyframe's insertion number when it was queued: an
+        epoch whose keyframe was removed (or its slot reused) while it
+        waited in the queue does nothing and returns False."""
         with smap.lock:
-            with self._stage("kf_cull"):
-                self.cull_landmarks(smap, kf_id)
+            if not smap.kf_valid_host()[kf_id] or (kf_seq is not None and int(smap.kf_seq[kf_id]) != kf_seq):
+                return False
+        self.n_epochs += 1
+        with self._stage("kf_cull"):
+            self.cull_landmarks(smap, kf_id)
+            with smap.lock:
                 # landmark-table pressure: evict the weakest old landmarks,
                 # never those of the covisible window or the recent ones
                 cap = smap.landmark_capacity()
@@ -596,16 +703,22 @@ class LocalMapper:
                         + [np.array([i for i, _, _ in self._recent_lms], np.int64)]
                     )
                     self.n_lm_evictions += smap.evict_landmarks(headroom - cap, protect)
-            with self._stage("kf_create"):
-                self.create_new_points(smap, kf_id)
-            with self._stage("kf_fuse"):
-                self.fuse_neighbors(smap, kf_id)
-            with self._stage("kf_local_ba"):
-                if smap.n_kf_active() >= 3:
-                    self.local_ba(smap, kf_id)
-            with self._stage("kf_cull"):
-                if smap.n_kf_active() >= 8:
-                    self.cull_keyframes(smap, kf_id)
-            with self._stage("kf_refresh"):
+        with self._stage("kf_create"):
+            self.create_new_points(smap, kf_id)
+        with self._stage("kf_fuse"):
+            self.fuse_neighbors(smap, kf_id)
+        with self._stage("kf_local_ba"):
+            with smap.lock:
+                n_active = smap.n_kf_active()
+            if n_active >= 3:
+                self.local_ba(smap, kf_id)
+        with self._stage("kf_cull"):
+            with smap.lock:
+                n_active = smap.n_kf_active()
+            if n_active >= 8:
+                self.cull_keyframes(smap, kf_id)
+        with self._stage("kf_refresh"):
+            with smap.lock:
                 kf_lms = smap.keyframe_landmarks(kf_id) if smap.kf_valid_host()[kf_id] else np.zeros(0, np.int64)
-                self.refresh_landmarks(smap, kf_lms)
+            self.refresh_landmarks(smap, kf_lms)
+        return True

@@ -6,8 +6,12 @@ Port of ``orbslam_in_practice_tpu/slam/tracking.py``. ``Tracking`` runs the
 the unfused flow (reference-keyframe tracking, local-map tracking) as its
 fallback, the keyframe decision and insertion, a synchronous local-mapping
 epoch per keyframe followed by a loop-closure attempt, and relocalisation
-when lost with more than 5 keyframes. Asynchronous mapping is not ported:
-``async_mapping=True`` raises ``NotImplementedError``.
+when lost with more than 5 keyframes. With ``async_mapping=True`` the
+epochs and loop closing run in a worker thread (``slam/async_mapping.py``)
+while tracking goes on: the keyframe decision throttles on the worker's
+queue, and a closure the worker found re-anchors the tracker as soon as
+tracking next takes the map lock (before it tracks, or before its keyframe
+decision when the closure landed while the fused step ran).
 
 ``FusedSteadyStep`` is ``Tracking._build_fused_steady``: decode the 8.8
 fixed-point image -> ORB extraction -> motion-model projection match
@@ -44,6 +48,7 @@ from orbslam_in_practice_tpu_torch.frontend.orb import ORBExtractor
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets
 from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, bundle_adjustment
 from orbslam_in_practice_tpu_torch.optim.pose_opt import pose_optimization
+from orbslam_in_practice_tpu_torch.slam.async_mapping import AsyncMapperDriver
 from orbslam_in_practice_tpu_torch.slam.initializer import initialize_two_view
 from orbslam_in_practice_tpu_torch.slam.local_mapping import LocalMapper
 from orbslam_in_practice_tpu_torch.slam.loop_closing import LoopCloser
@@ -181,12 +186,13 @@ class Tracking:
     flow only), 'reloc' (lost: relocalisation tried) or 'reset' (lost
     early: the map was reset); and
     ``frame_keyframe`` says whether it inserted a keyframe (and so ran a
-    local-mapping epoch).
+    local-mapping epoch, or queued it for the worker).
+
+    ``async_driver`` is the mapping worker when ``config.async_mapping``,
+    else None.
     """
 
     def __init__(self, config, device: torch.device | str = "cuda"):
-        if config.async_mapping:
-            raise NotImplementedError("asynchronous local mapping is not ported yet: set async_mapping=False")
         self.cfg = config
         self.device = torch.device(device)
         self.K = config.cam.K(self.device)
@@ -226,6 +232,10 @@ class Tracking:
         self.n_fused_frames = 0
         self.frame_path = None
         self.frame_keyframe = False
+        # a loop closure posted by the worker, (ref_kf, ref_seq, pose_before),
+        # read and cleared under the map lock
+        self._pending_closure_rebase = None
+        self.async_driver = AsyncMapperDriver(self) if config.async_mapping else None
 
     def _new_map(self) -> SlamMap:
         return self.adopt_map(SlamMap(self.cfg.k_max, self.cfg.l_max, self.step.f_max, device=self.device))
@@ -240,7 +250,11 @@ class Tracking:
     # ------------------------------------------------------------------
     def reset(self):
         """Start over with an empty map; trajectory entries so far are frozen
-        at their absolute poses (re-anchored through the old map first)."""
+        at their absolute poses (re-anchored through the old map first).
+        Queued mapping epochs finish against the old map first."""
+        if self.async_driver is not None:
+            self.async_driver.drain()
+            self._pending_closure_rebase = None
         old_map = self.map
         self.map = self._new_map()
         self.mapper = LocalMapper(self.cfg, self.device)
@@ -269,6 +283,8 @@ class Tracking:
         Returns the frame's Tcw (4, 4) numpy, or None when not tracked."""
         self.frame_id += 1
         self.frame_keyframe = False
+        if self.async_driver is not None:
+            self.async_driver.raise_errors()
         if self.use_fused and self.state == TrackingState.OK and self.velocity is not None and self.last_obs is not None:
             n_fused = self.n_fused_frames
             status, frame, pose = self._track_frame_fused(image)
@@ -302,15 +318,18 @@ class Tracking:
         elif self.state == TrackingState.OK:
             with self.map.lock:
                 pose = self.last_pose if self._track_frame(frame) else None
-        elif self.map.n_kf_active() > 5:  # LOST
-            self.frame_path = "reloc"
+        else:  # LOST
             with self.map.lock:
-                pose = self.last_pose if self._relocalize(frame) else None
-        else:
-            # lost soon after initialisation: a small map is cheaper to
-            # rebuild than to relocalise against
-            self.reset()
-            pose = None
+                self._consume_async_events()
+                relocalizable = self.map.n_kf_active() > 5
+                if relocalizable:
+                    self.frame_path = "reloc"
+                    pose = self.last_pose if self._relocalize(frame) else None
+            if not relocalizable:
+                # lost soon after initialisation: a small map is cheaper to
+                # rebuild than to relocalise against
+                self.reset()
+                pose = None
 
         with self.map.lock:
             if pose is None:
@@ -320,6 +339,34 @@ class Tracking:
 
     def _to_device(self, image) -> torch.Tensor:
         return torch.as_tensor(np.asarray(image, np.float32)).to(self.device)
+
+    def _consume_async_events(self) -> bool:
+        """Apply a loop closure the worker posted: re-anchor ``last_pose``
+        through the reference keyframe's correction, last_pose @
+        inv(pose_before) @ pose_now (the synchronous path's ``last_pose =
+        kf_pose[kf]``, done late), and drop the stale motion model. Every
+        locked entry of tracking calls it first, so a closure is applied
+        once, to a pose tracked on the map before it. Returns whether
+        ``last_pose`` moved."""
+        with self.map.lock:
+            ev, self._pending_closure_rebase = self._pending_closure_rebase, None
+            if ev is None:
+                return False
+            ref_kf, ref_seq, pose_before = ev
+            self.velocity = None
+            m = self.map
+            if (
+                self.last_pose is None
+                or pose_before is None
+                or ref_kf < 0
+                or not m.kf_valid_host()[ref_kf]
+                or int(m.kf_seq[ref_kf]) != ref_seq
+            ):
+                return False
+            rebased = _host(self.last_pose) @ np.linalg.inv(pose_before) @ m.hview("kf_pose")[ref_kf]
+            self.last_pose = torch.from_numpy(rebased.astype(np.float32)).to(self.device)
+            self._prev_pose = self.last_pose
+            return True
 
     def _reanchor_trajectory(self, kf_id: int, kf_seq: int, kf_pose: np.ndarray):
         """Re-anchor trajectory entries of a keyframe being removed to the
@@ -474,9 +521,13 @@ class Tracking:
         tries the reference keyframe on the returned frame) or 'stage2'
         (local map failed: lost, as in the unfused flow). Its flags, inlier
         count, observations, pose and velocity come back in one
-        device-to-host copy.
+        device-to-host copy, made with the map lock released.
         """
         with self.map.lock:
+            # a closure posted before the launch: the step would match the
+            # corrected map from a stale prediction
+            if self._consume_async_events():
+                return "stage1", None, None
             mm = np.unique(self.last_obs[self.last_obs >= 0])
             if len(mm) < 10:
                 return "stage1", None, None
@@ -501,7 +552,8 @@ class Tracking:
             out = torch.cat([
                 flags, obs.to(torch.int32),
                 Tcw.contiguous().view(torch.int32).reshape(16), vel.contiguous().view(torch.int32).reshape(16),
-            ]).cpu().numpy()
+            ])
+        out = out.cpu().numpy()
         n_feat = obs.shape[0]
         ok1_h, ok_h, n2_h = bool(out[0]), bool(out[1]), int(out[2])
         if not ok1_h:
@@ -516,12 +568,14 @@ class Tracking:
             self.last_obs = obs_h
             self.velocity = vel
             self.n_inliers = n2_h
-            if self._need_new_keyframe(frame):
-                self._insert_keyframe(frame)
+            if self._consume_async_events():  # posted while the step ran on the pre-closure map
                 Tcw_h = self.last_pose
+            if self._need_new_keyframe(frame) and self._insert_keyframe(frame):
+                Tcw_h = self.last_pose  # the epoch may have moved the keyframe
         return "ok", frame, Tcw_h
 
     def _track_frame(self, frame, try_motion: bool = True) -> bool:
+        self._consume_async_events()
         ok = False
         if try_motion and self.velocity is not None:
             ok = self._track_with_motion_model(frame)
@@ -659,10 +713,12 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, frame) -> bool:
-        """ORB-SLAM's monocular keyframe decision (mapping is synchronous,
-        so always idle), with a long-gap fallback and, on young maps, an
-        inlier-decay criterion; none within fps frames of a relocalisation
-        while the map holds more than fps keyframes."""
+        """ORB-SLAM's monocular keyframe decision, with a long-gap
+        fallback and, on young maps, an inlier-decay criterion; none within
+        fps frames of a relocalisation while the map holds more than fps
+        keyframes. Asynchronous mapping gates it on the worker's queue: none
+        when QUEUE_MAX epochs are pending, and with one pending only on the
+        inlier criteria."""
         frames_since_kf = self.frame_id - self.last_kf_frame_id
         if frames_since_kf < 1:
             return False
@@ -687,9 +743,19 @@ class Tracking:
             and frames_since_kf >= 2
             and self.n_inliers > 15
         )
-        return c2 or decay or (long_gap and self.n_inliers >= 30)
+        if not (c2 or decay or (long_gap and self.n_inliers >= 30)):
+            return False
+        if self.async_driver is not None:
+            pending = self.async_driver.pending()
+            if pending >= self.async_driver.QUEUE_MAX or (pending >= 1 and not (c2 or decay)):
+                return False
+        return True
 
-    def _insert_keyframe(self, frame):
+    def _insert_keyframe(self, frame) -> bool:
+        """Insert the frame as a keyframe (evicting one when the table is
+        full), then run its mapping epoch and a loop-closure attempt, or
+        queue them for the worker. Returns whether the epoch ran here (and
+        may have moved ``last_pose``)."""
         if self.map.keyframe_capacity() < 1:
             # protect the working set: the reference keyframe, its top
             # covisible neighbours and the earliest keyframe (the gauge)
@@ -707,12 +773,16 @@ class Tracking:
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self._peak_inliers_since_kf = 0
+        if self.async_driver is not None:
+            self.async_driver.enqueue(self.map, kf_id)
+            return False
         self.mapper.process_new_keyframe(self.map, kf_id)
         if self.loop_closer is not None and self.loop_closer.attempt(self.map, kf_id, self.mapper):
             self.velocity = None  # the map's geometry jumped: the motion model is stale
         # local BA or a loop closure may have moved the keyframe; a copy, not
         # a view of the table
         self.last_pose = self.map.kf_pose[kf_id].clone()
+        return True
 
     # ------------------------------------------------------------------
     def _relocalize(self, frame) -> bool:
@@ -733,7 +803,10 @@ class Tracking:
 
 def materialize_trajectory(tracker) -> list:
     """[(frame_id, ts, Tcw or None), ...] with poses re-anchored to the
-    current keyframe poses, so BA refines past frames."""
+    current keyframe poses, so BA refines past frames. Queued mapping
+    epochs are applied first."""
+    if tracker.async_driver is not None:
+        tracker.async_driver.drain()
     out = []
     kf_valid = tracker.map.kf_valid_host()
     kf_pose = tracker.map.hview("kf_pose")

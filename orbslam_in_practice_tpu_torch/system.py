@@ -3,7 +3,10 @@
 Port of ``orbslam_in_practice_tpu/system.py``: construct from a settings
 file or a ``SlamConfig`` and a device, feed monocular frames, get poses
 back, export the trajectory, save and load the map (the JAX package's npz
-format, so a map saved by either package loads in the other).
+format, so a map saved by either package loads in the other). With
+``async_mapping`` the mapping epochs run in a worker thread: ``wait_idle``
+waits for it, ``shutdown`` stops it, and reading the trajectory or saving
+the map waits for it first.
 """
 
 from __future__ import annotations
@@ -44,6 +47,19 @@ class SlamSystem:
     def reset(self):
         self.tracker.reset()
 
+    def wait_idle(self, timeout: float | None = None) -> bool:
+        """Wait until the mapping worker has applied every queued epoch
+        (True at once in synchronous mode); False when ``timeout`` ran out.
+        Re-raises a worker error."""
+        driver = self.tracker.async_driver
+        return True if driver is None else driver.drain(timeout)
+
+    def shutdown(self, timeout: float = 60.0):
+        """Drain and join the mapping worker (ORB-SLAM's System::Shutdown);
+        nothing to do in synchronous mode."""
+        if self.tracker.async_driver is not None:
+            self.tracker.async_driver.shutdown(timeout)
+
     def get_trajectory(self):
         """[(frame_id, timestamp, Tcw 4x4 numpy or None), ...], re-anchored
         to the current keyframe poses."""
@@ -62,10 +78,12 @@ class SlamSystem:
     def save_map(self, path: str):
         from orbslam_in_practice_tpu_torch.utils.checkpoint import save_map
 
+        self.wait_idle()
         save_map(path, self.tracker.map)
 
     def load_map(self, path: str):
         """Replace the tracker's map with the one saved at ``path``."""
         from orbslam_in_practice_tpu_torch.utils.checkpoint import load_map
 
+        self.wait_idle()
         self.tracker.adopt_map(load_map(path, self.tracker.device))

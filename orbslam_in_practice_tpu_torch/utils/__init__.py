@@ -1,1 +1,1 @@
-"""Utilities: map checkpoints."""
+"""Utilities: map checkpoints, logging, the viewer, profiling."""

@@ -19,7 +19,11 @@ pose-graph optimisation on the card against the CPU on a drifted chain:
 vertices within 1e-3. Relocalisation on the card against the CPU, with the
 same RANSAC samples: the same outcome, keyframe, observations and inlier
 count, Tcw within 1e-3; and the loop closer's Sim3 RANSAC likewise: the
-same inlier count, s, R, t within 1e-3.
+same inlier count, s, R, t within 1e-3. Asynchronous mapping on the card:
+the worker queues on the default stream, its epochs all run, the device
+tables equal host truth, one launch of each kernel per extraction.
+Distributed BA in a one-rank NCCL group against the CPU without a group:
+poses and points within 1e-4.
 """
 
 from types import SimpleNamespace
@@ -370,3 +374,66 @@ def test_sim3_ransac_card_matches_cpu(cuda_device):  # noqa: F811
     assert int(n_c) == int(n_g) >= 100 and torch.equal(inl_c, inl_g)
     assert abs(float(s_g) - float(s_c)) < 1e-3 and abs(float(s_c) - 1.3) < 0.02
     assert (R_g - R_c).abs().max() < 1e-3 and (t_g - t_c).abs().max() < 1e-3
+
+
+def test_async_system_on_card(cuda_device):  # noqa: F811
+    """Asynchronous mapping on the card, the device given without an index:
+    tracker and worker queue on the default stream; after the drain
+    the state is OK, every queued epoch ran, the map's device tables equal
+    its host truth, the kernels launched once per extraction (the worker
+    extracts nothing) and shutdown joins the worker."""
+    from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, n_points=700, kind="strafe", seed=3)
+    cfg = SlamConfig(n_features=600, n_levels=4, fps=10.0, k_max=64, l_max=8192, async_mapping=True)
+    system = SlamSystem(cfg, device="cuda")  # no index, as run_slam passes it
+    drv = system.tracker.async_driver
+    calls, streams = [], set()
+    for extractor in (system.tracker.extractor, system.tracker.ini_extractor):
+        extractor.register_forward_hook(lambda *_: calls.append(1))
+    epoch = system.tracker.mapper.process_new_keyframe
+
+    def on_worker(*args):
+        streams.add(torch.cuda.current_stream().cuda_stream)
+        return epoch(*args)
+
+    system.tracker.mapper.process_new_keyframe = on_worker
+    before = fast_score_nms.launches, orb_patch_features.launches
+    with torch.no_grad():
+        for i in range(seq.n_frames):
+            system.track_monocular(seq.render(i), 0.1 * i)
+            assert drv.pending() <= drv.QUEUE_MAX
+    assert system.wait_idle(timeout=120.0)
+    assert system.state == TrackingState.OK and drv.n_processed >= 1
+    assert streams == {torch.cuda.default_stream().cuda_stream}
+    assert fast_score_nms.launches - before[0] == len(calls) == orb_patch_features.launches - before[1]
+    m = system.map
+    for name in ("lm_pos", "lm_valid", "lm_desc_pm1", "lm_normal", "kf_pose", "kf_feat_valid", "kf_desc_pm1"):
+        assert np.array_equal(getattr(m, name).cpu().numpy(), m.hview(name)), name
+    system.shutdown()
+    assert not drv.is_alive()
+
+
+def test_dist_ba_one_rank_nccl_matches_cpu(cuda_device):  # noqa: F811
+    """dist_bundle_adjustment in a one-rank NCCL group (a TCPStore on
+    127.0.0.1), 8 local shards, against the same call on CPU tensors without
+    a group: poses and points within 1e-4."""
+    import socket
+
+    import torch.distributed as dist
+
+    from orbslam_in_practice_tpu_torch.parallel.dist_ba_worker import run
+
+    want = run(8, "cpu", 10)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(cuda_device)
+    store = dist.TCPStore("127.0.0.1", port, 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    try:
+        got = run(8, cuda_device, 10)
+    finally:
+        dist.destroy_process_group()
+    assert np.abs(got[0] - want[0]).max() < 1e-4
+    assert np.abs(got[1] - want[1]).max() < 1e-4

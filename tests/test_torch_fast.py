@@ -44,3 +44,26 @@ def test_wrapper_runs_plain_version_on_cpu():
     before = fast_score_nms.launches
     assert torch.equal(fast_score_nms(img), fast_score_nms_plain(img))
     assert fast_score_nms.launches == before
+
+
+def test_fast_corners_np_matches_jax_and_the_score():
+    """The numpy golden models agree exactly, and a pixel is a corner at a
+    threshold iff its FAST score is above it."""
+    img = _image((24, 30), seed=3)
+    got = tfast.fast_corners_np(img, 20.0)
+    assert np.array_equal(got, jfast.fast_corners_np(img, 20.0)) and got.sum() > 10
+    score = tfast.fast_score(torch.from_numpy(img)).numpy()
+    assert np.array_equal(got, score > 20.0)
+
+
+def test_hamming_np_matches_jax():
+    from orbslam_in_practice_tpu.ops.hamming import hamming_np as jax_hamming_np
+    from orbslam_in_practice_tpu_torch.ops.hamming import hamming_matrix, hamming_np, pack_bits, unpack_to_pm1
+
+    bits = np.random.default_rng(4).integers(0, 2, (13, 256))
+    words = pack_bits(torch.from_numpy(bits)).numpy()  # int32
+    want = jax_hamming_np(words.view(np.uint32)[:5], words.view(np.uint32))
+    got = hamming_np(words[:5], words)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    pm1 = unpack_to_pm1(torch.from_numpy(words))
+    assert np.array_equal(got, hamming_matrix(pm1[:5], pm1).numpy())

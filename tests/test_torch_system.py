@@ -12,7 +12,8 @@ for every keyframe (on this short strafe none survives the covisibility
 and temporal guards). Checkpoints load across packages with the tables equal.
 Trajectory export and ATE evaluation match the JAX package's on the same
 trajectory: ATE within 1e-5, exported numbers within 1e-6.
-``async_mapping`` raises NotImplementedError.
+``async_mapping`` starts the mapping worker (tests/test_torch_async_mapping.py
+tests it).
 """
 
 import dataclasses
@@ -135,9 +136,15 @@ def test_trajectory_export_and_ate_match_jax(tmp_path, seq, fused_run):
 
 @pytest.mark.parametrize("field", ["async_mapping"])
 def test_unported_settings_raise(field):
+    """Every setting of the JAX package is ported now: async_mapping no
+    longer raises; it starts the mapping worker, which shutdown joins."""
     cfg = dataclasses.replace(small_config(), **{field: True})
-    with pytest.raises(NotImplementedError):
-        Tracking(cfg)
+    tracker = Tracking(cfg, device="cpu")
+    driver = tracker.async_driver
+    assert driver is not None and driver.is_alive() and driver.idle()
+    driver.shutdown(timeout=10.0)
+    assert not driver.is_alive()
+    assert Tracking(small_config(), device="cpu").async_driver is None
 
 
 def test_lost_and_relocalize(seq):
