@@ -6,9 +6,10 @@
 Builds the CUDA kernels of ``orbslam_in_practice_tpu_torch`` from
 ``csrc/``, checks each against its plain PyTorch version on the card in
 one launch over every pyramid level, at the shapes the extractors give it
-(kernel A at the bench frame's 4 levels and a TUM1 frame's 8; kernel B at
-512, 800 and 1600 keypoints over the 4 bench levels and 1000 over TUM1's
-8), and prints its device time beside its bound. It runs the TUM1
+(kernel A at the bench frame's 4 levels, a TUM1 frame's 8 and a KITTI
+frame's 4; kernel B at 512, 800, 1000 and 1600 keypoints over the 4 bench
+levels, 1000 over TUM1's 8, and 1000 and 2000 over KITTI's 4), and prints
+its device time beside its bound. It runs the TUM1
 extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
@@ -41,7 +42,18 @@ closing on, relocalisation when lost):
 - ``phase_dataset``: the strafe's first 20 frames written as 8-bit PGM in a
   TUM layout, read back with ``load_tum`` (the native loader, built in this
   run; its prefetch queue against ``read_image``) and tracked:
-  tests/test_e2e_real_data_glue.py's gates.
+  tests/test_e2e_real_data_glue.py's gates;
+- the JAX package's other end-to-end regimes (``regimes.py``), each under
+  its test's gates, with the JAX package's figures beside the port's:
+  ``phase_regimes`` (tests/test_e2e_motion_regimes.py: noisy strafe, forward
+  and rotation-dominant motion at 1000 features), ``phase_distortion``
+  (tests/test_e2e_distortion.py: TUM1's lens on every frame),
+  ``phase_no_false_loop`` (tests/test_e2e_long_sequence.py's strafe that
+  revisits nothing: no closure), ``phase_kitti_res``
+  (tests/test_e2e_kitti_res.py: 1241x376 at 1000 features) and
+  ``phase_kitti_turn`` (tests/test_e2e_kitti_scale.py's turn regime: 160
+  frames of the corridor world through its first 90-degree turn at 2000
+  features and the production budgets).
 
 In every system run each kernel must launch once per extraction. It prints
 times in microseconds per kernel launch and milliseconds per frame, per
@@ -96,6 +108,35 @@ DATASET_FRAMES, DATASET_MIN_TRACKED, DATASET_MIN_ALIGNED, DATASET_ATE = 20, 15, 
 # pose against the port's own estimate of the same frame
 RELOC_TRACK_FRAMES, RELOC_FRAME = 28, 20
 RELOC_T_TOL, RELOC_R_TOL = 0.06, 0.05
+# the JAX package's SlamSystem on the end-to-end regimes of regimes.py, on
+# the CPU (tests/torch_regime_reference.py): frames tracked, aligned, ATE
+# (scene units), keyframes, landmarks, loop closures; the KITTI turn also its
+# frames tracked in state OK, longest untracked run and ATE in % of the
+# path. Printed beside the port's; the gates are the JAX tests' own bounds
+# (REGIME_GATES), and a port ATE above twice the JAX package's is flagged.
+REFERENCE_REGIMES = {
+    "strafe": dict(tracked=38, aligned=38, ate=0.009329, n_kf=11, n_lm=1014, closures=0),
+    "forward": dict(tracked=42, aligned=42, ate=0.008394, n_kf=17, n_lm=1040, closures=0),
+    "rotation": dict(tracked=47, aligned=47, ate=0.029534, n_kf=16, n_lm=1191, closures=0),
+    "distortion": dict(tracked=38, aligned=38, ate=0.019597, n_kf=17, n_lm=967, closures=0),
+    "no_false_loop": dict(tracked=58, aligned=58, ate=0.013131, n_kf=12, n_lm=804, closures=0),
+    "kitti_res": dict(tracked=24, aligned=24, ate=0.031519, n_kf=17, n_lm=1904, closures=0),
+    "kitti_turn": dict(tracked=152, aligned=152, ate=0.035283, n_kf=84, n_lm=8836, closures=1, tracked_ok=152,
+                       lost_run=7, ate_pct=0.184131),
+}
+# the JAX tests' gates: tracked and aligned above, ATE below
+REGIME_GATES = {
+    "strafe": dict(tracked=30, aligned=30, ate=0.02),
+    "forward": dict(tracked=25, ate=0.05),
+    "rotation": dict(tracked=25, ate=0.05),
+    "distortion": dict(tracked=20, aligned=20, ate=0.05),
+    "kitti_res": dict(tracked=12, aligned=12, ate=0.08),
+}
+DISTORTION_MIN_KF, DISTORTION_MIN_LM, DISTORTION_MIN_SHIFT = 2, 50, 1.0  # >=, >, > px
+# test_e2e_kitti_turn_regime: tracked in state OK above 90% of the frames, no
+# untracked run of 20 frames, ATE under 1.5% of the path, no local-BA clip
+TURN_MIN_OK_FRACTION, TURN_MAX_LOST_RUN, TURN_MAX_ATE_PCT = 0.9, 20, 1.5
+RENDER_WORKERS = 3  # processes rendering a regime's frames ahead of the tracker
 LOOP_FRAMES = 340  # tests/test_e2e_long_sequence.py's orbit
 LOOP_K_MAX, LOOP_L_MAX = 48, 4096
 ANGLE_TOL = 1e-3  # rad, kernel B vs its plain version
@@ -146,12 +187,13 @@ def extraction_counter(*extractors) -> list:
 
 def phase_fast(device) -> dict:
     """Kernel A in one launch over every pyramid level (the bench frame's 4,
-    a TUM1 frame's 8) and over one 1241x376 KITTI-size frame, against
-    nms3x3(fast_score) on the card: bit-exact. Times at the bench levels."""
+    a TUM1 frame's 8, a KITTI frame's 4) and over one 1241x376 KITTI-size
+    frame, against nms3x3(fast_score) on the card: bit-exact. Times at the
+    bench levels."""
     import torch
 
     from orbslam_in_practice_tpu_torch.bench_kernels import (
-        bench_levels, bound, events_ms, fast_work, launch_ms, profiled_ms, tum1_levels,
+        bench_levels, bound, events_ms, fast_work, kitti_levels, launch_ms, profiled_ms, tum1_levels,
     )
     from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
     from orbslam_in_practice_tpu_torch.ops.cuda_fast import (
@@ -160,7 +202,7 @@ def phase_fast(device) -> dict:
 
     kitti = SyntheticSequence(n_frames=2, n_points=900, width=1241, height=376, seed=1)
     cases = [("bench 4 levels", bench_levels(device)), ("TUM1 8 levels", tum1_levels(device)),
-             ("KITTI 1 level", [torch.from_numpy(kitti.render(1)).to(device)])]
+             ("KITTI 1 level", [torch.from_numpy(kitti.render(1)).to(device)]), ("KITTI 4 levels", kitti_levels(device))]
     out = {}
     err = 0.0
     for label, levels in cases:
@@ -707,6 +749,201 @@ def phase_dataset(device) -> dict:
     return launches
 
 
+_RENDER_SEQ = None  # a render worker's sequence
+
+
+def _render_init(name: str) -> None:
+    global _RENDER_SEQ
+    from orbslam_in_practice_tpu_torch import regimes
+
+    _RENDER_SEQ = regimes.build(name)[0]
+
+
+def _render(i: int):
+    return _RENDER_SEQ.render(i)
+
+
+def rendered_ahead(name: str, n: int):
+    """(timestamp, image) of frames 0..n-1 of the regime ``name``, in order,
+    rendered by RENDER_WORKERS spawned processes ahead of the tracker (a
+    1241x376 corridor frame takes ~0.6 s on one core). The processes are
+    shut down when the generator ends or is closed."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from orbslam_in_practice_tpu_torch.run_slam import FRAME_DT
+
+    pool = ProcessPoolExecutor(RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_render_init, initargs=(name,))
+    try:
+        for i, image in enumerate(pool.map(_render, range(n))):
+            yield i * FRAME_DT, image
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def sim3_recorder(closer) -> list:
+    """Wraps ``closer.compute_sim3``; returns the list it appends (keyframe
+    frame, candidate frame, inliers) to for every candidate verified."""
+    verified = []
+    compute_sim3 = closer.compute_sim3
+
+    def recorded(smap, kf_id, cand, *args):
+        result = compute_sim3(smap, kf_id, cand, *args)
+        verified.append((int(smap.kf_frame_id[kf_id]), int(smap.kf_frame_id[cand]), int(result[4])))
+        return result
+
+    closer.compute_sim3 = recorded
+    return verified
+
+
+def run_regime(device, name: str):
+    """``SlamSystem`` on the regime ``name`` (``regimes.build``) on the
+    kernel path, loop closing on, timed by ``run_frames``, its frames
+    rendered ahead (``rendered_ahead``). Prints the
+    port's tracked, aligned, ATE, keyframes, landmarks, closures and
+    frames/s beside the JAX package's (REFERENCE_REGIMES), ms/frame by
+    path and the phase's wall seconds; checks that each kernel launched
+    once per extraction. Returns (run_frames' dict, the system, the
+    launches, the per-frame log)."""
+    import numpy as np
+    import torch
+
+    from orbslam_in_practice_tpu_torch import regimes
+    from orbslam_in_practice_tpu_torch.run_slam import run_frames
+    from orbslam_in_practice_tpu_torch.slam.loop_closing import MIN_INLIERS
+    from orbslam_in_practice_tpu_torch.system import SlamSystem
+    from orbslam_in_practice_tpu_torch.utils.logging import FrameLog
+
+    t0 = time.perf_counter()
+    seq, cfg, n = regimes.build(name)
+    system = SlamSystem(cfg, device=device)
+    calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+    verified = sim3_recorder(system.tracker.loop_closer)
+    log = FrameLog()
+    gt = seq.gt_centers()[:n]
+    frames = rendered_ahead(name, n)
+    try:
+        with torch.no_grad():
+            reset_launches()
+            out = run_frames(system, frames, gt, flog=log)
+            launches = read_launches()
+    finally:
+        frames.close()
+    wall = time.perf_counter() - t0
+    out["path"] = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    ref = REFERENCE_REGIMES[name]
+    closer = system.tracker.loop_closer
+    print(f"{name}: {n} frames ({cfg.width}x{cfg.height}, {cfg.n_features} features, {cfg.k_max} keyframe and "
+          f"{cfg.l_max} landmark slots), state {out['state']}; port | JAX package: tracked {out['tracked']} | "
+          f"{ref['tracked']}, aligned {out['aligned_frames']} | {ref['aligned']}, ATE {out['ate_rmse']:.6f} | "
+          f"{ref['ate']} ({100 * out['ate_rmse'] / out['path']:.3f}% of the {out['path']:.2f} path), keyframes {out['n_kf']} | {ref['n_kf']}, landmarks {out['n_lm']} | {ref['n_lm']}, "
+          f"closures {out['loop_closures']} | {ref['closures']} ({closer.n_attempts} attempts); "
+          f"{out['fps']:.2f} frames/s inside track_monocular, {out['fused_frames']} fused frames, "
+          f"{out['epochs']} epochs, phase wall {wall:.1f} s")
+    _print_paths(name, out)
+    if verified:
+        kf, cand, inliers = max(verified, key=lambda v: v[2])
+        print(f"{name}: {len(verified)} loop candidates verified; the most inliers, {inliers} ({MIN_INLIERS} needed), "
+              f"at keyframe frames {kf} -> {cand}, true centres {np.linalg.norm(gt[kf] - gt[cand]):.2f} apart")
+    if ref["ate"] is not None and out["ate_rmse"] > 2.0 * ref["ate"]:
+        print(f"{name}: the port's ATE {out['ate_rmse']:.6f} is more than twice the JAX package's {ref['ate']}")
+    print(f"{name}: launches {launches} for {len(calls)} extractions")
+    check_launches(launches, calls, name, n)
+    return out, system, launches, log.records
+
+
+def check_regime_gates(name: str, out: dict) -> None:
+    """The JAX test's gates of REGIME_GATES[name], and state OK."""
+    gates = REGIME_GATES[name]
+    check(out["state"] == "OK", f"{name} ended in state {out['state']}")
+    check(out["tracked"] > gates["tracked"], f"{name} tracked {out['tracked']}, not above {gates['tracked']}")
+    if "aligned" in gates:
+        check(out["aligned_frames"] > gates["aligned"],
+              f"{name} aligned {out['aligned_frames']}, not above {gates['aligned']}")
+    check(out["ate_rmse"] < gates["ate"], f"{name} ATE {out['ate_rmse']} not under {gates['ate']}")
+
+
+def phase_regimes(device) -> list:
+    """tests/test_e2e_motion_regimes.py: noisy strafe (40 frames), forward
+    and rotation-dominant motion (50 each) at 1000 features, pixel noise 1.0
+    and 10% exposure jitter, under the test's gates."""
+    runs = []
+    for name in ("strafe", "forward", "rotation"):
+        out, _, launches, _ = run_regime(device, name)
+        check_regime_gates(name, out)
+        runs.append(launches)
+    return runs
+
+
+def phase_distortion(device) -> dict:
+    """tests/test_e2e_distortion.py: the strafe through TUM1's lens, the
+    extractor undistorting every frame. The test's gates, and the last
+    tracked frame's undistorted coordinates more than 1 px from its raw
+    ones somewhere."""
+    out, system, launches, _ = run_regime(device, "distortion")
+    check_regime_gates("distortion", out)
+    check(out["n_kf"] >= DISTORTION_MIN_KF and out["n_lm"] > DISTORTION_MIN_LM,
+          f"distortion: {out['n_kf']} keyframes, {out['n_lm']} landmarks")
+    frame = system.tracker.last_frame
+    check(frame is not None, "distortion: no last frame")
+    valid = frame.valid
+    shift = float((frame.xy - frame.xy_raw).abs()[valid].max())
+    print(f"distortion: the last tracked frame's undistorted coordinates move up to {shift:.2f} px from the raw "
+          f"ones ({int(valid.sum())} valid keypoints)")
+    check(shift > DISTORTION_MIN_SHIFT, f"distortion: undistortion moved the keypoints only {shift} px")
+    return launches
+
+
+def phase_no_false_loop(device) -> dict:
+    """tests/test_e2e_long_sequence.py::test_no_false_loop_closures_without_revisit:
+    a noisy 60-frame strafe that revisits nothing, 48 keyframe slots. Gates:
+    state OK, loop closing attempted and no closure."""
+    out, system, launches, _ = run_regime(device, "no_false_loop")
+    closer = system.tracker.loop_closer
+    check(out["state"] == "OK", f"no_false_loop ended in state {out['state']}")
+    check(closer.n_attempts >= 1, "no_false_loop: no loop-closure attempt")
+    check(closer.n_closures == 0, f"no_false_loop: {closer.n_closures} false closures")
+    return launches
+
+
+def phase_kitti_res(device) -> dict:
+    """tests/test_e2e_kitti_res.py: 25 frames at 1241x376, 1000 features,
+    a 10-keyframe local window, under the test's gates."""
+    out, _, launches, _ = run_regime(device, "kitti_res")
+    check_regime_gates("kitti_res", out)
+    return launches
+
+
+def phase_kitti_turn(device) -> dict:
+    """tests/test_e2e_kitti_scale.py::test_e2e_kitti_turn_regime: 160 frames
+    of the 500-frame corridor world, through its first 90-degree turn
+    (frames 90-126), at 2000 features and the production budgets. Gates:
+    more than 90% of the frames tracked in state OK, no untracked run of
+    TURN_MAX_LOST_RUN frames, ATE under 1.5% of the path, no local-BA
+    truncation."""
+    out, system, launches, log = run_regime(device, "kitti_turn")
+    n = len(log)
+    ok = [r["tracked"] and r["state"] == "OK" for r in log]
+    lost_run = cur = 0
+    for flag in ok:
+        cur = 0 if flag else cur + 1
+        lost_run = max(lost_run, cur)
+    path = out["path"]
+    pct = 100.0 * out["ate_rmse"] / path
+    truncations = system.tracker.mapper.stats()["n_ba_truncations"]
+    ref = REFERENCE_REGIMES["kitti_turn"]
+    print(f"kitti_turn: port | JAX package: {sum(ok)} | {ref['tracked_ok']} of {n} frames tracked in state OK, "
+          f"longest untracked run {lost_run} | {ref['lost_run']}, ATE {pct:.3f}% | {ref['ate_pct']}% of the "
+          f"{path:.2f} path, {truncations} local-BA truncations, {out['local_map_truncations']} local-map clips, "
+          f"{out['n_lm_evictions']} landmark evictions")
+    check(sum(ok) > TURN_MIN_OK_FRACTION * n, f"kitti_turn: {sum(ok)} of {n} frames tracked in state OK")
+    check(lost_run < TURN_MAX_LOST_RUN, f"kitti_turn: an untracked run of {lost_run} frames")
+    check(pct < TURN_MAX_ATE_PCT, f"kitti_turn: ATE {out['ate_rmse']} is {pct}% of the {path} path")
+    check(truncations == 0, f"kitti_turn: {truncations} local-BA truncations")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -714,7 +951,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from orbslam_in_practice_tpu_torch.bench_kernels import bench_levels, tum1_config, tum1_levels
+    from orbslam_in_practice_tpu_torch.bench_kernels import (
+        bench_levels, kitti_config, kitti_levels, tum1_config, tum1_levels,
+    )
     from orbslam_in_practice_tpu_torch.bench_state import bench_config
     from orbslam_in_practice_tpu_torch.ops import cuda_build
     from orbslam_in_practice_tpu_torch.run_slam import synthetic_config
@@ -736,20 +975,26 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     a = phase_fast(device)
-    # the bench's extractor, the system's tracking and initialisation
-    # extractors, and TUM1's; the JSON line reports the tracking extractor
-    bench, tum1 = bench_levels(device), tum1_levels(device)
-    n_track = synthetic_config().n_features
+    # every extractor the main path runs, tracking (n) and initialisation
+    # (2n): the bench's; the system's; TUM1's; distortion's and
+    # no-false-loop's (600); the motion regimes' (1000) over the bench's
+    # levels; KITTI resolution's (1000) and the turn's (2000) over KITTI's.
+    # The JSON line reports the system's tracking extractor.
+    bench, tum1, kitti = bench_levels(device), tum1_levels(device), kitti_levels(device)
+    n_track, n_kitti = synthetic_config().n_features, kitti_config().n_features
     b = phase_patch(device, f"bench 4 levels, {n_track} features", bench, n_track)
-    for label, levels, n in ((f"bench 4 levels, {bench_config().n_features} features", bench, bench_config().n_features),
-                             (f"bench 4 levels, {2 * n_track} features", bench, 2 * n_track),
-                             (f"TUM1 8 levels, {tum1_config().n_features} features", tum1, tum1_config().n_features)):
-        b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, label, levels, n)["max_abs_err"])
+    cases = [("bench 4 levels", bench, n) for n in (bench_config().n_features, 2 * n_track, 600, 1200, 1000, 2000)]
+    cases += [("TUM1 8 levels", tum1, tum1_config().n_features)]
+    cases += [("KITTI 4 levels", kitti, n) for n in (1000, n_kitti, 2 * n_kitti)]
+    for label, levels, n in cases:
+        b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, f"{label}, {n} features", levels, n)["max_abs_err"])
     phase_tum1(device)
     runs = [phase_step(device)]
     launches_system, out_system, system = phase_system(device)
     runs += [launches_system, phase_relocalize(device), phase_loop(device), phase_async(device, out_system),
              phase_dataset(device)]
+    runs += phase_regimes(device)
+    runs += [phase_distortion(device), phase_no_false_loop(device), phase_kitti_res(device), phase_kitti_turn(device)]
     phase_dist_ba(device, system)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
 

@@ -31,6 +31,8 @@ import torch
 from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms_plain
 from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, select_keypoints
+from orbslam_in_practice_tpu_torch.regimes import build as build_regime
+from orbslam_in_practice_tpu_torch.regimes import kitti_config
 from orbslam_in_practice_tpu_torch.utils.profiling import BYTES_PER_S, OPS_PER_S
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -191,6 +193,18 @@ def tum1_image(device) -> torch.Tensor:
 def tum1_levels(device) -> list:
     cfg = tum1_config()
     return build_pyramid(tum1_image(device), cfg.n_levels, cfg.scale_factor)
+
+
+def kitti_image(device) -> torch.Tensor:
+    """Frame 1 of the KITTI turn regime's corridor world (1241x376)."""
+    return torch.from_numpy(build_regime("kitti_turn")[0].render(1)).to(device)
+
+
+def kitti_levels(device) -> list:
+    """The 4 pyramid levels of ``kitti_image`` at ``kitti_config()`` (the
+    turn regime's: 2000 features), 1,171,764 px."""
+    cfg = kitti_config()
+    return build_pyramid(kitti_image(device), cfg.n_levels, cfg.scale_factor)
 
 
 def keypoints(levels: list, n_features: int) -> tuple:

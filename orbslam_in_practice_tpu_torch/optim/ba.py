@@ -5,15 +5,16 @@ fixed as the gauge), marginalised XYZ landmarks, monocular reprojection
 edges with a Huber kernel (delta = sqrt(5.991)), Levenberg-Marquardt.
 
 - A fixed-shape observation table; per-observation analytic Jacobians.
-- Per-landmark 3x3 blocks inverted in closed form; the reduced camera
-  system assembled densely (one-hot contractions) for up to
-  ``DENSE_ASSEMBLY_MAX_CAMS`` cameras, and in landmark chunks with
-  ``index_add_`` beyond.
+- Per-landmark 3x3 blocks inverted in closed form; the camera blocks
+  summed by one-hot products; the Schur off-diagonal assembled densely for
+  up to ``DENSE_ASSEMBLY_MAX_CAMS`` cameras, and in landmark chunks beyond.
 - A fixed number of LM iterations whose accept/reject is a ``torch.where``
   on the device, so BA never waits on the host.
 
-On CUDA ``index_add_`` adds with atomics, so sums change order from run to
-run: compare BA results with a tolerance, never bit for bit.
+Every float sum over observations is a one-hot contraction (a matrix
+product), never ``index_add_``: on the card ``index_add_`` adds with
+atomics, in another order on each run, and a run's result would not repeat. The
+packages still sum in different orders: compare them with a tolerance.
 """
 
 from __future__ import annotations
@@ -28,9 +29,13 @@ from orbslam_in_practice_tpu_torch.geometry.se3 import exp_se3, hat
 CHI2_MONO = 5.991
 HUBER_DELTA = CHI2_MONO**0.5
 
-# At or below this camera count the Schur system is assembled with dense
-# one-hot contractions; above it, landmark chunk by chunk.
+# At or below this camera count the Schur off-diagonal is assembled with
+# dense one-hot contractions; above it, landmark chunk by chunk.
 DENSE_ASSEMBLY_MAX_CAMS = 64
+
+# The most one-hot elements a row sum (``sum_rows_by_index``) builds at once:
+# up to 65,536 observations a chunk at 64 cameras, one chunk in local BA.
+ONEHOT_CHUNK_ELEMENTS = 1 << 22
 
 
 class BAProblem(NamedTuple):
@@ -144,6 +149,20 @@ def count_obs_drops(obs_point: np.ndarray, n_points: int, o_max: int) -> int:
     return int(np.maximum(counts - o_max, 0).sum())
 
 
+def sum_rows_by_index(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) sums of the rows of ``values`` (R, ...) by ``index`` (R,);
+    rows whose index is not in [0, n) are dropped. One-hot products chunk by
+    chunk (at most ``ONEHOT_CHUNK_ELEMENTS`` one-hot elements each), so the
+    sums run in one fixed order on every run."""
+    chunk = max(1, ONEHOT_CHUNK_ELEMENTS // max(n, 1))
+    flat = values.reshape(values.shape[0], -1)
+    out = flat.new_zeros((n, flat.shape[1]))
+    cols = torch.arange(n, device=values.device)
+    for s in range(0, flat.shape[0], chunk):
+        out = out + (index[s : s + chunk, None] == cols).to(flat.dtype).T @ flat[s : s + chunk]
+    return out.reshape((n,) + values.shape[1:])
+
+
 def build_normal_equations(poses, points, prob: BAProblem):
     """Assemble the Schur system's blocks.
 
@@ -160,13 +179,8 @@ def build_normal_equations(poses, points, prob: BAProblem):
     Jc_w = Jc * w[:, None, None]
     Hcc_obs = Jc_w.transpose(-1, -2) @ Jc  # (O, 6, 6)
     b_obs = -(Jc_w.transpose(-1, -2) @ r[..., None])[..., 0]  # (O, 6)
-    if n_cam <= DENSE_ASSEMBLY_MAX_CAMS:
-        onehot = (prob.obs_cam[:, None] == torch.arange(n_cam, device=poses.device)).to(dtype)
-        Hcc = torch.einsum("ok,oij->kij", onehot, Hcc_obs)
-        b_c = onehot.T @ b_obs
-    else:
-        Hcc = torch.zeros((n_cam, 6, 6), dtype=dtype, device=poses.device).index_add_(0, prob.obs_cam, Hcc_obs)
-        b_c = torch.zeros((n_cam, 6), dtype=dtype, device=poses.device).index_add_(0, prob.obs_cam, b_obs)
+    Hcc = sum_rows_by_index(Hcc_obs, prob.obs_cam, n_cam)
+    b_c = sum_rows_by_index(b_obs, prob.obs_cam, n_cam)
 
     # landmark blocks, grouped by point
     po = prob.point_obs
@@ -196,22 +210,15 @@ def schur_offdiag_chunked(T, Wg, contrib, cam_g, pv, n_cam, chunk=1024):
     k6 = n_cam * 6
     S = torch.zeros((k6, k6), dtype=dtype, device=device)
     b = torch.zeros((n_cam, 6), dtype=dtype, device=device)
+    cams = torch.arange(n_cam, device=device)
     for s in range(0, L_, chunk):
         e = min(s + chunk, L_)
         c = e - s
-        cam = torch.where(pv[s:e], cam_g[s:e], n_cam)  # invalid -> a spill row
-        A = torch.zeros((c, n_cam + 1, 6, 3), dtype=dtype, device=device)
-        B = torch.zeros_like(A)
-        rows = torch.arange(c, device=device)[:, None].expand_as(cam)
-        flat = (rows * (n_cam + 1) + cam).reshape(-1)
-        A.view(-1, 6, 3).index_add_(0, flat, T[s:e].reshape(-1, 6, 3))
-        B.view(-1, 6, 3).index_add_(0, flat, Wg[s:e].reshape(-1, 6, 3))
-        Am = A[:, :n_cam].permute(0, 3, 1, 2).reshape(c * 3, k6)
-        Bm = B[:, :n_cam].permute(0, 3, 1, 2).reshape(c * 3, k6)
+        E = ((cam_g[s:e, :, None] == cams) & pv[s:e, :, None]).to(dtype)  # (C, O_max, K) one-hot
+        Am = torch.einsum("lok,loij->ljki", E, T[s:e]).reshape(c * 3, k6)
+        Bm = torch.einsum("lok,loij->ljki", E, Wg[s:e]).reshape(c * 3, k6)
         S = S - Am.T @ Bm
-        bc = torch.zeros((n_cam + 1, 6), dtype=dtype, device=device)
-        bc.index_add_(0, cam.reshape(-1), contrib[s:e].reshape(-1, 6))
-        b = b - bc[:n_cam]
+        b = b - torch.einsum("lok,loi->ki", E, contrib[s:e])
     return S.reshape(n_cam, 6, n_cam, 6).permute(0, 2, 1, 3), b
 
 

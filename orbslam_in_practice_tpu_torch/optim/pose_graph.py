@@ -11,9 +11,13 @@ Each edge's residual depends on two vertices only, so its Jacobian is two
 respect to a (7,) perturbation broadcast to every edge gives the same blocks
 in 14 forward passes. (Under ``torch.func.vmap`` each edge's scalars become
 0-dim tensors, and forward-mode tangents of a 0-dim float32 tensor combined
-with a Python float are promoted to float64.) The blocks are scatter-added (``index_put_`` with
-``accumulate=True``) into a dense (n, n, 7, 7) Hessian, solved as one
-(7n)^2 system (``torch.linalg.solve_ex``). Each iteration's accept or reject
+with a Python float are promoted to float64.) The blocks are laid out as a
+dense (7E, 7n) Jacobian, so the Hessian J^T W J and the gradient are matrix
+products: their sums run in one fixed order on every run, on the card as on
+the CPU. (Scatter-adding the blocks, ``index_put_(accumulate=True)``, sums
+with atomics on the card, in another order each run; a loop closure's
+result then varied from run to run.) The Hessian is solved as one (7n)^2
+system (``torch.linalg.solve_ex``). Each iteration's accept or reject
 is a ``torch.where`` on the device, so the loop never waits on the host.
 """
 
@@ -71,24 +75,18 @@ def optimize_pose_graph(
     w7 = w.repeat_interleave(7)
     zero_e = torch.zeros((ei.shape[0], 7), dtype=dtype, device=device)
     eye = torch.eye(n * 7, dtype=dtype, device=device)
+    vertices = torch.arange(n, device=device)
+    Pi = (ei[:, None] == vertices).to(dtype)  # (E, n) one-hot
+    Pj = (ej[:, None] == vertices).to(dtype)
     S, lam = S_vertices, torch.tensor(1e-6, dtype=dtype, device=device)
     for _ in range(ITERATIONS):
         Si, Sj = S[ei], S[ej]
         r0 = edge_residual(zero_e, zero_e, Si, Sj, S_meas)  # (E, 7)
         Ji, Jj = edge_jacobians(Si, Sj, S_meas)
-        Jiw = Ji * w[:, None, None]
-        Jjw = Jj * w[:, None, None]
-        Hij = Jiw.transpose(-1, -2) @ Jj
-        Hb = torch.zeros((n, n, 7, 7), dtype=dtype, device=device)
-        Hb.index_put_((ei, ei), Jiw.transpose(-1, -2) @ Ji, accumulate=True)
-        Hb.index_put_((ei, ej), Hij, accumulate=True)
-        Hb.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-        Hb.index_put_((ej, ej), Jjw.transpose(-1, -2) @ Jj, accumulate=True)
-        H = Hb.permute(0, 2, 1, 3).reshape(n * 7, n * 7)
-        g = torch.zeros((n, 7), dtype=dtype, device=device)
-        g.index_add_(0, ei, -(Jiw.transpose(-1, -2) @ r0[..., None])[..., 0])
-        g.index_add_(0, ej, -(Jjw.transpose(-1, -2) @ r0[..., None])[..., 0])
-        g = g.reshape(-1) * free_flat
+        J = (torch.einsum("eab,en->eanb", Ji, Pi) + torch.einsum("eab,en->eanb", Jj, Pj)).reshape(-1, n * 7)
+        Jw = J * w7[:, None]
+        H = Jw.T @ J
+        g = -(Jw.T @ r0.reshape(-1)) * free_flat
         # gauge: fixed vertices' rows and columns zeroed, identity diagonal
         H = H * free_flat[:, None] * free_flat[None, :] + torch.diag(1.0 - free_flat)
         H = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye

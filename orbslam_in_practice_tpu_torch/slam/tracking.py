@@ -190,12 +190,18 @@ class Tracking:
 
     ``async_driver`` is the mapping worker when ``config.async_mapping``,
     else None.
+
+    As in the JAX package, ``cam`` is the configuration's camera,
+    ``last_frame`` the last tracked frame (the extractor's or the fused
+    step's own outputs, never rows of the map's tables) and ``new_kf_ids``
+    every keyframe slot inserted, in order; ``reset`` clears neither.
     """
 
     def __init__(self, config, device: torch.device | str = "cuda"):
         self.cfg = config
+        self.cam = config.cam
         self.device = torch.device(device)
-        self.K = config.cam.K(self.device)
+        self.K = self.cam.K(self.device)
         self.step = FusedSteadyStep(config).to(self.device)
         self.extractor = self.step.extractor
         # doubled feature budget for initialisation
@@ -211,6 +217,7 @@ class Tracking:
 
         self.state = TrackingState.NO_IMAGES
         self.frame_id = -1
+        self.last_frame = None  # the last tracked Frame, on the device
         self.last_pose = None  # (4, 4) Tcw of the last frame, on the device
         self._prev_pose = None
         self.last_obs = None  # (F,) landmark id per feature of the last frame (host)
@@ -228,6 +235,7 @@ class Tracking:
         self.trajectory: list = []
         self.n_inliers = 0
         self.n_local_map_truncations = 0
+        self.new_kf_ids: list = []
         self.use_fused = True
         self.n_fused_frames = 0
         self.frame_path = None
@@ -481,11 +489,13 @@ class Tracking:
         self.mapper.refresh_landmarks(self.map, ids)
 
         self.last_pose = torch.from_numpy(T2n).to(self.device)
+        self.last_frame = frame
         self.last_obs = obs2
         self.ref_kf = kf2
         self.last_kf_frame_id = self.frame_id
         self.velocity = None
         self.state = TrackingState.OK
+        self.new_kf_ids += [kf1, kf2]
 
     def _initial_global_ba(self, kf1, kf2, ids):
         kf_idx, feat_idx, which = self.map.observations_of(ids)
@@ -565,6 +575,7 @@ class Tracking:
         with self.map.lock:
             self._prev_pose = self.last_pose
             self.last_pose = Tcw
+            self.last_frame = frame
             self.last_obs = obs_h
             self.velocity = vel
             self.n_inliers = n2_h
@@ -591,6 +602,7 @@ class Tracking:
             self.velocity = self.last_pose @ torch.linalg.inv_ex(self._prev_pose)[0]
         if self._need_new_keyframe(frame):
             self._insert_keyframe(frame)
+        self.last_frame = frame
         return True
 
     def _gather_landmark_arrays(self, lm_ids: np.ndarray, pad: int, invariants: bool = False):
@@ -770,6 +782,7 @@ class Tracking:
             self.map.evict_keyframe(np.asarray(sorted(protect)))
         kf_id = self.map.add_keyframe(frame, self.last_pose, self.last_obs, self.frame_id)
         self.frame_keyframe = True
+        self.new_kf_ids.append(kf_id)
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
         self._peak_inliers_since_kf = 0
@@ -792,6 +805,7 @@ class Tracking:
             return False
         self.last_pose = torch.from_numpy(Tcw).to(self.device)
         self._prev_pose = self.last_pose
+        self.last_frame = frame
         self.last_obs = obs
         self.n_inliers = n_in
         self.velocity = None

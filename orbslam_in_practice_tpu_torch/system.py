@@ -1,8 +1,8 @@
 """SlamSystem: the API facade.
 
 Port of ``orbslam_in_practice_tpu/system.py``: construct from a settings
-file or a ``SlamConfig`` and a device, feed monocular frames, get poses
-back, export the trajectory, save and load the map (the JAX package's npz
+file or a ``SlamConfig`` (and, by keyword, a device), feed monocular
+frames, get poses back, export the trajectory, save and load the map (the JAX package's npz
 format, so a map saved by either package loads in the other). With
 ``async_mapping`` the mapping epochs run in a worker thread: ``wait_idle``
 waits for it, ``shutdown`` stops it, and reading the trajectory or saving
@@ -19,9 +19,11 @@ from orbslam_in_practice_tpu_torch.slam.tracking import Tracking, TrackingState,
 
 
 class SlamSystem:
-    def __init__(self, config, device: torch.device | str = "cuda"):
-        """config: path to an ORB-SLAM style YAML or a SlamConfig; device:
-        where the map and every device stage live."""
+    def __init__(self, config, bow_path: str | None = None, *, device: torch.device | str = "cuda"):
+        """config: path to an ORB-SLAM style YAML or a SlamConfig; bow_path:
+        the reference's vocabulary file, accepted and ignored as in the JAX
+        package (place recognition needs no vocabulary); device: where the
+        map and every device stage live."""
         if isinstance(config, str):
             config = load_config(config)
         self.cfg: SlamConfig = config
@@ -35,6 +37,8 @@ class SlamSystem:
             w = [0.299, 0.587, 0.114] if self.cfg.rgb else [0.114, 0.587, 0.299]
             img = img @ np.array(w, np.float32)
         return self.tracker.track_mono(img, timestamp)
+
+    Trackmonocular = track_monocular  # the reference's spelling
 
     @property
     def state(self) -> TrackingState:

@@ -117,6 +117,22 @@ def test_schur_offdiag_chunked_matches_jax():
         np.testing.assert_allclose(b_t.numpy(), np.asarray(b_j), atol=2e-4)
 
 
+@pytest.mark.parametrize("n, chunk_elements", [(9, 1 << 22), (9, 64), (70, 140)])
+def test_sum_rows_by_index_matches_segment_sum(monkeypatch, n, chunk_elements):
+    """The camera blocks' one-hot sums, in one chunk or in several, equal
+    the JAX package's segment sum (rows indexed out of range dropped)."""
+    import jax
+
+    monkeypatch.setattr(tba, "ONEHOT_CHUNK_ELEMENTS", chunk_elements)
+    rng = np.random.default_rng(n)
+    values = rng.normal(size=(301, 6, 6)).astype(np.float32)
+    index = rng.integers(0, n + 2, 301)
+    want = jax.ops.segment_sum(jnp.asarray(values), jnp.asarray(index.astype(np.int32)), num_segments=n)
+    got = tba.sum_rows_by_index(torch.from_numpy(values), torch.from_numpy(index), n)
+    assert got.shape == (n, 6, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_build_point_obs_exact():
     rng = np.random.default_rng(2)
     for n_points, o_max in ((37, 4), (200, 12), (5, 1)):

@@ -12,11 +12,15 @@ normalised moments, not by cos/sin of the angle); its ±1 rows equal
 ``unpack_to_pm1`` of its words exactly. Each kernel runs once over every
 pyramid level: the bench's 4 levels of a 640x480 frame and TUM1's 8. Bundle adjustment on the
 card against the CPU: poses within 1e-3 and points within 1e-3 of their
-depth (``index_add_`` sums in another order on every run). The system on
+depth (the devices sum in other orders); two runs on the card give the same
+bits. The system on
 the card: state OK after the e2e sequence's first 16 frames, both kernels
-launched, and the map's device tables equal to its host truth. The
+launched, and the map's device tables equal to its host truth; built as the
+JAX package is, ``SlamSystem(config, bow_path)``, it lives on the card, and
+after the distorted strafe's first 8 frames its last frame is the fused
+step's, on the card, with undistorted coordinates apart from the raw ones. The
 pose-graph optimisation on the card against the CPU on a drifted chain:
-vertices within 1e-3. Relocalisation on the card against the CPU, with the
+vertices within 1e-3; on a 48-keyframe graph, the same bits on every run. Relocalisation on the card against the CPU, with the
 same RANSAC samples: the same outcome, keyframe, observations and inlier
 count, Tcw within 1e-3; and the loop closer's Sim3 RANSAC likewise: the
 same inlier count, s, R, t within 1e-3. Asynchronous mapping on the card:
@@ -212,7 +216,8 @@ def test_fused_step_kernels_match_plain(cuda_device):  # noqa: F811
 
 @pytest.mark.parametrize("n_cams", [2, 70])
 def test_bundle_adjustment_card_matches_cpu(cuda_device, n_cams):  # noqa: F811
-    """The dense (2 cameras) and chunked (70 cameras) Schur paths."""
+    """The dense (2 cameras) and chunked (70 cameras) Schur paths; on the
+    card twice."""
     rng = np.random.default_rng(n_cams)
     n_pts = 200
     pts = np.stack([rng.uniform(-1, 0.3 * n_cams, n_pts), rng.uniform(-1.5, 1.5, n_pts), rng.uniform(4, 8, n_pts)], -1)
@@ -238,10 +243,11 @@ def test_bundle_adjustment_card_matches_cpu(cuda_device, n_cams):  # noqa: F811
         K=np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32),
     )
     outs = []
-    for device in ("cpu", cuda_device):
+    for device in ("cpu", cuda_device, cuda_device):
         prob = BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in fields.items()})
         outs.append([t.cpu().numpy() for t in bundle_adjustment(prob, iterations=3)])
-    (P_c, X_c, _), (P_g, X_g, _) = outs
+    (P_c, X_c, _), (P_g, X_g, _), again = outs
+    assert all(np.array_equal(a, b) for a, b in zip(again, outs[1]))
     assert np.abs(P_g - P_c).max() < 1e-3
     assert np.all(np.abs(X_g - X_c) < 1e-3 * pts[:, 2:3])
 
@@ -270,6 +276,24 @@ def test_system_on_card(cuda_device):  # noqa: F811
         assert getattr(m, name).is_cuda and np.array_equal(getattr(m, name).cpu().numpy(), m.hview(name)), name
 
 
+def test_system_api_on_card(cuda_device):  # noqa: F811
+    from orbslam_in_practice_tpu_torch import regimes
+
+    seq, cfg, _ = regimes.build("distortion")
+    system = SlamSystem(cfg, "vocab.txt")  # the device defaults to the card
+    tracker = system.tracker
+    assert tracker.device.type == "cuda" and system.map.kf_pose.is_cuda and tracker.cam == cfg.cam
+    with torch.no_grad():
+        for i in range(8):
+            system.Trackmonocular(seq.render(i), 0.1 * i)
+    assert system.state == TrackingState.OK and tracker.frame_path == "fused"
+    frame = tracker.last_frame
+    assert frame.xy.is_cuda and frame.xy_raw.is_cuda and frame.valid.is_cuda
+    assert float((frame.xy - frame.xy_raw).abs()[frame.valid].max()) > 1.0
+    # the two initial keyframes, then one a local-mapping epoch
+    assert tracker.new_kf_ids[:2] == [0, 1] and len(tracker.new_kf_ids) == tracker.mapper.n_epochs + 2
+
+
 def test_pose_graph_card_matches_cpu(cuda_device):  # noqa: F811
     """tests/test_sim3_lie.py's drifted chain: a line of 10 poses, odometry
     edges from the drifted estimate, one loop edge from the truth."""
@@ -290,6 +314,28 @@ def test_pose_graph_card_matches_cpu(cuda_device):  # noqa: F811
     card = optimize_pose_graph(*(a.to(cuda_device) for a in args))
     assert card.is_cuda and (card.cpu() - cpu).abs().max().item() < 1e-3
     assert (cpu[-1] - S_true[-1]).norm() < 0.1 * (S_est[-1] - S_true[-1]).norm()
+
+
+def test_pose_graph_card_is_deterministic(cuda_device):  # noqa: F811
+    """A loop closure's essential graph at the orbit's size (48 keyframes,
+    each joined to its next three and a few loop edges, noisy measurements):
+    three runs on the card give the same bits."""
+    gen = torch.Generator().manual_seed(0)
+    n = 48
+    xi = torch.zeros((n, 7))
+    xi[:, 3] = torch.arange(n) * 0.13  # yaw around an orbit
+    xi[:, 0] = torch.arange(n) * 0.4
+    S = exp_sim3(xi)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1, min(i + 4, n))] + [(0, n - 1), (1, n - 2), (2, n - 1)]
+    ei = torch.tensor([i for i, _ in pairs])
+    ej = torch.tensor([j for _, j in pairs])
+    noise = exp_sim3(0.01 * torch.randn((len(pairs), 7), generator=gen))
+    meas = noise @ S[ej] @ torch.linalg.inv(S[ei])
+    S_est = exp_sim3(xi + 0.05 * torch.randn((n, 7), generator=gen))
+    args = [a.to(cuda_device) for a in (S_est, ei, ej, meas, torch.ones(len(pairs)), torch.arange(n) == 0)]
+    runs = [optimize_pose_graph(*args).cpu() for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    assert torch.isfinite(runs[0]).all()
 
 
 def _reloc_scene(device):

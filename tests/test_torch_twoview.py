@@ -190,6 +190,24 @@ def test_triangulate_dlt_matches_jax():
     assert np.abs(got.numpy() - pts).max() < 0.5  # 0.3 px noise at depths up to 8, baseline 0.4
 
 
+def test_triangulate_dlt_in_batches_matches_one_call(monkeypatch):
+    """The eigensolves split into batches of EIGH_BATCH_MAX systems (the
+    card's cuSOLVER refuses too large a batch) give the one call's points,
+    for a batch of hypotheses over the matches as check_rt passes them."""
+    from orbslam_in_practice_tpu_torch.geometry import triangulate
+
+    rng = np.random.default_rng(1)
+    _, R, t, p1, p2 = _rig(rng)
+    P1 = torch.from_numpy((K @ np.hstack([np.eye(3), np.zeros((3, 1))])).astype(np.float32))
+    P2 = torch.from_numpy(np.stack([K @ np.hstack([R, (s * t)[:, None]]) for s in (1.0, -1.0, 0.5)]).astype(np.float32))
+    args = (P1, P2[:, None], torch.from_numpy(p1.astype(np.float32)), torch.from_numpy(p2.astype(np.float32)))
+    whole = triangulate.triangulate_dlt(*args)
+    monkeypatch.setattr(triangulate, "EIGH_BATCH_MAX", 7)
+    split = triangulate.triangulate_dlt(*args)
+    assert whole.shape == (3, len(p1), 3) and 3 * len(p1) > 7
+    assert torch.equal(split, whole)
+
+
 def _same_up_to_scale(A: np.ndarray, B: np.ndarray) -> float:
     a = A / np.linalg.norm(A, axis=(-2, -1), keepdims=True)
     b = B / np.linalg.norm(B, axis=(-2, -1), keepdims=True)
