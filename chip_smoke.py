@@ -7,15 +7,15 @@ Builds the CUDA kernels of ``orbslam_in_practice_tpu_torch`` from
 ``csrc/``, checks each against its plain PyTorch version on the card in
 one launch over every pyramid level, at the shapes the extractors give it
 (kernel A at the bench frame's 4 levels, a TUM1 frame's 8 and a KITTI
-frame's 4; kernel B at 512, 800, 1000 and 1600 keypoints over the 4 bench
-levels, 1000 over TUM1's 8, and 1000 and 2000 over KITTI's 4), and prints
-its device time beside its bound. It runs the TUM1
+frame's 4; kernel B at every extractor's tracking and initialisation
+keypoint count over the bench's 4 levels, TUM1's 8 and KITTI's 4), and
+prints its device time beside its bound. It runs the TUM1
 extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
 feeding pose and velocity forward. Then it runs the whole system,
-``SlamSystem``, three times, at the JAX package's default settings (loop
-closing on, relocalisation when lost):
+``SlamSystem``, on each sequence below at the JAX package's default
+settings (loop closing on, relocalisation when lost):
 
 - ``phase_system``: the 60-frame synthetic strafe from its first frame
   (``python -m orbslam_in_practice_tpu_torch.run_slam --synthetic``'s
@@ -49,17 +49,24 @@ closing on, relocalisation when lost):
   and rotation-dominant motion at 1000 features), ``phase_distortion``
   (tests/test_e2e_distortion.py: TUM1's lens on every frame),
   ``phase_no_false_loop`` (tests/test_e2e_long_sequence.py's strafe that
-  revisits nothing: no closure), ``phase_kitti_res``
-  (tests/test_e2e_kitti_res.py: 1241x376 at 1000 features) and
-  ``phase_kitti_turn`` (tests/test_e2e_kitti_scale.py's turn regime: 160
-  frames of the corridor world through its first 90-degree turn at 2000
-  features and the production budgets).
+  revisits nothing: no closure) and ``phase_kitti_res``
+  (tests/test_e2e_kitti_res.py: 1241x376 at 1000 features);
+- the JAX package's two production-budget runs (1241x376, 2000 features,
+  256 keyframe and 16384 landmark slots), each in a spawned process of its
+  own on the same card (``Lane``) while this process runs the phases
+  above: ``phase_kitti_500`` (tests/test_e2e_kitti_scale.py's 500-frame
+  corridor run through every 90-degree turn, landmark eviction under table
+  pressure; at frame 160 the turn regime's gates, then the production
+  test's) and ``phase_kitti_loop`` (tools/kitti_loop_probe.py's 580-frame
+  circuit: a Sim(3) closure on the revisit leg, global BA over more than
+  64 cameras, the probe's gates).
 
 In every system run each kernel must launch once per extraction. It prints
 times in microseconds per kernel launch and milliseconds per frame, per
-keyframe epoch and per loop closure by span, one JSON line describing the
-kernels (launches summed over the tracking step's and every system run),
-and last ``{"ok": true, "device": {...}}``.
+keyframe epoch and per loop closure by span, each phase's seconds and peak
+device memory, one JSON line describing the kernels (launches summed over
+the tracking step's and every system run), and last
+``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero; without a CUDA device
 it exits 2 and prints no result. It imports nothing of JAX.
@@ -72,6 +79,7 @@ import math
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -123,6 +131,17 @@ REFERENCE_REGIMES = {
     "kitti_res": dict(tracked=24, aligned=24, ate=0.031519, n_kf=17, n_lm=1904, closures=0),
     "kitti_turn": dict(tracked=152, aligned=152, ate=0.035283, n_kf=84, n_lm=8836, closures=1, tracked_ok=152,
                        lost_run=7, ate_pct=0.184131),
+    # the production runs take hours on the CPU: the JAX package's own chip
+    # runs of the same sequences, KITTI500_r04.json (tools/kitti_scale_probe.py)
+    # and KITTI_LOOP_r05.json (tools/kitti_loop_probe.py); their tracked counts
+    # are frames tracked in state OK
+    "kitti_500": dict(source="the JAX package's chip run, KITTI500_r04.json", tracked=487, aligned=487, ate=0.296684,
+                      n_kf=167, n_lm=14468, closures=0, ate_pct=0.493283, n_obs=99319, evictions=14495,
+                      fuse_merges=30413),
+    "kitti_loop": dict(source="the JAX package's chip run, KITTI_LOOP_r05.json", tracked=535, aligned=535,
+                       ate=0.861102, n_kf=106, n_lm=8959, closures=1, ate_pct=0.424673, n_obs=40069, evictions=0,
+                       fuse_merges=3413, resets=1, closure="frame 532, keyframe slot 98 to candidate 7, scale 0.9076, "
+                       "ATE 1.1616 -> 0.6712"),
 }
 # the JAX tests' gates: tracked and aligned above, ATE below
 REGIME_GATES = {
@@ -136,7 +155,22 @@ DISTORTION_MIN_KF, DISTORTION_MIN_LM, DISTORTION_MIN_SHIFT = 2, 50, 1.0  # >=, >
 # test_e2e_kitti_turn_regime: tracked in state OK above 90% of the frames, no
 # untracked run of 20 frames, ATE under 1.5% of the path, no local-BA clip
 TURN_MIN_OK_FRACTION, TURN_MAX_LOST_RUN, TURN_MAX_ATE_PCT = 0.9, 20, 1.5
+# test_e2e_kitti_production_500 and _common_gates: tracked in state OK above
+# 90%, ATE under 1.5% of the path, more than 450 frames aligned, more than
+# 8000 landmarks and 100 keyframes, no lost segment of 20 frames or more that
+# starts after frame 10, p95 host ms of the paths that scale with the map
+PROD_MIN_OK_FRACTION, PROD_MAX_ATE_PCT, PROD_MIN_ALIGNED, PROD_MIN_LM, PROD_MIN_KF = 0.9, 1.5, 450, 8000, 100
+PROD_LOST_SEGMENT, PROD_LOST_AFTER = 20, 10
+PROD_HOST_P95_MS = {"_local_map_landmarks": 60.0, "covisibility": 60.0, "cull_keyframes": 250.0}
+# tools/kitti_loop_probe.py's gates: >= 1 closure, the first lowering the ATE,
+# fuse merges under 100 a frame, tracked in state OK above 85%; and a closure
+# on the revisit leg (the circuit closes after 4 x (90 + 36) = 504 frames and
+# drives its first street again), its global BA over more than
+# DENSE_ASSEMBLY_MAX_CAMS (64) cameras: the chunked Schur path
+CIRCUIT_MIN_OK_FRACTION, CIRCUIT_MAX_MERGES_PER_FRAME, CIRCUIT_MIN_BA_CAMS = 0.85, 100, 64
+CIRCUIT_REVISIT_FRAME = 504
 RENDER_WORKERS = 3  # processes rendering a regime's frames ahead of the tracker
+LANES = ("phase_kitti_loop", "phase_kitti_500")  # phases run in processes of their own (``Lane``)
 LOOP_FRAMES = 340  # tests/test_e2e_long_sequence.py's orbit
 LOOP_K_MAX, LOOP_L_MAX = 48, 4096
 ANGLE_TOL = 1e-3  # rad, kernel B vs its plain version
@@ -782,36 +816,69 @@ def rendered_ahead(name: str, n: int):
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def sim3_recorder(closer) -> list:
-    """Wraps ``closer.compute_sim3``; returns the list it appends (keyframe
-    frame, candidate frame, inliers) to for every candidate verified."""
-    verified = []
-    compute_sim3 = closer.compute_sim3
+@contextmanager
+def class_patches(*patches):
+    """For the block, replace each class attribute ``(cls, name, make)`` with
+    ``make(original)``. A wrapper on the class survives ``Tracking.reset``,
+    which replaces the tracker's map, mapper and loop closer with new
+    instances (a wrapper on an instance would vanish with it)."""
+    saved = []
+    try:
+        for cls, name, make in patches:
+            saved.append((cls, name, cls.__dict__[name]))
+            setattr(cls, name, make(saved[-1][2]))
+        yield
+    finally:
+        for cls, name, orig in reversed(saved):
+            setattr(cls, name, orig)
 
-    def recorded(smap, kf_id, cand, *args):
-        result = compute_sim3(smap, kf_id, cand, *args)
-        verified.append((int(smap.kf_frame_id[kf_id]), int(smap.kf_frame_id[cand]), int(result[4])))
-        return result
 
-    closer.compute_sim3 = recorded
-    return verified
+def timed(samples: list):
+    """A ``class_patches`` maker: the method, its host ms appended to ``samples``."""
+    def make(orig):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                samples.append((time.perf_counter() - t0) * 1e3)
+        return wrapped
+    return make
 
 
-def run_regime(device, name: str):
+def lost_segments(ok: list) -> list:
+    """(first, last) frame of every run of frames not tracked in state OK."""
+    segments, start = [], None
+    for i, flag in enumerate(ok + [True]):
+        if not flag and start is None:
+            start = i
+        elif flag and start is not None:
+            segments.append((start, i - 1))
+            start = None
+    return segments
+
+
+def run_regime(device, name: str, on_frame=None):
     """``SlamSystem`` on the regime ``name`` (``regimes.build``) on the
     kernel path, loop closing on, timed by ``run_frames``, its frames
-    rendered ahead (``rendered_ahead``). Prints the
-    port's tracked, aligned, ATE, keyframes, landmarks, closures and
-    frames/s beside the JAX package's (REFERENCE_REGIMES), ms/frame by
-    path and the phase's wall seconds; checks that each kernel launched
-    once per extraction. Returns (run_frames' dict, the system, the
-    launches, the per-frame log)."""
+    rendered ahead (``rendered_ahead``); ``on_frame(i, system)`` runs before
+    frame i is tracked. Prints the port's tracked, aligned, ATE, keyframes,
+    landmarks, closures and frames/s beside the JAX package's
+    (REFERENCE_REGIMES), ms/frame by path, every loop closure (its ATE just
+    before and after the correction, its stages' ms, its pose graph's and
+    global BA's sizes), the phase's wall seconds; checks that each kernel
+    launched once per extraction. The loop closer and the tracker's reset
+    are watched on their classes, so a reset loses nothing. Returns
+    (run_frames' dict with ``closure_events`` and ``resets`` added, the
+    system, the launches, the per-frame log)."""
     import numpy as np
     import torch
 
     from orbslam_in_practice_tpu_torch import regimes
+    from orbslam_in_practice_tpu_torch.io.evaluation import ate_rmse
     from orbslam_in_practice_tpu_torch.run_slam import run_frames
-    from orbslam_in_practice_tpu_torch.slam.loop_closing import MIN_INLIERS
+    from orbslam_in_practice_tpu_torch.slam.loop_closing import MIN_INLIERS, LoopCloser
+    from orbslam_in_practice_tpu_torch.slam.tracking import Tracking
     from orbslam_in_practice_tpu_torch.system import SlamSystem
     from orbslam_in_practice_tpu_torch.utils.logging import FrameLog
 
@@ -819,26 +886,70 @@ def run_regime(device, name: str):
     seq, cfg, n = regimes.build(name)
     system = SlamSystem(cfg, device=device)
     calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
-    verified = sim3_recorder(system.tracker.loop_closer)
     log = FrameLog()
     gt = seq.gt_centers()[:n]
+    verified, events, resets = [], [], [0]
+
+    def recorded_sim3(orig):
+        def compute_sim3(self, smap, kf_id, cand, *args):
+            result = orig(self, smap, kf_id, cand, *args)
+            verified.append((int(smap.kf_frame_id[kf_id]), int(smap.kf_frame_id[cand]), int(result[4])))
+            return result
+        return compute_sim3
+
+    def measured_close(orig):
+        # the ATE of the trajectory so far just before and just after the
+        # correction, as tools/kitti_loop_probe.py reads it
+        def close_loop(self, smap, kf_id, cand, s, R, t):
+            upto = system.tracker.frame_id + 1
+            pre = ate_rmse(system.get_trajectory(), gt[:upto])[0]
+            out = orig(self, smap, kf_id, cand, s, R, t)
+            post = ate_rmse(system.get_trajectory(), gt[:upto])[0]
+            events.append(dict(ate_pre=pre, ate_post=post, kf_frame=int(smap.kf_frame_id[kf_id]),
+                               cand_frame=int(smap.kf_frame_id[cand])))
+            return out
+        return close_loop
+
+    def recorded_attempt(orig):
+        def attempt(self, smap, kf_id, mapper):
+            closed = orig(self, smap, kf_id, mapper)
+            if closed:
+                events[-1].update(self.closures[-1])
+            return closed
+        return attempt
+
+    def counted_reset(orig):
+        def reset(self):
+            resets[0] += 1
+            return orig(self)
+        return reset
+
+    def tapped(frames):
+        for i, frame in enumerate(frames):
+            on_frame(i, system)
+            yield frame
+
     frames = rendered_ahead(name, n)
     try:
-        with torch.no_grad():
+        with torch.no_grad(), class_patches((LoopCloser, "compute_sim3", recorded_sim3),
+                                            (LoopCloser, "close_loop", measured_close),
+                                            (LoopCloser, "attempt", recorded_attempt), (Tracking, "reset", counted_reset)):
             reset_launches()
-            out = run_frames(system, frames, gt, flog=log)
+            out = run_frames(system, frames if on_frame is None else tapped(frames), gt, flog=log)
             launches = read_launches()
     finally:
         frames.close()
     wall = time.perf_counter() - t0
-    out["path"] = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    out.update(path=float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()), closure_events=events,
+               resets=resets[0])
     ref = REFERENCE_REGIMES[name]
     closer = system.tracker.loop_closer
     print(f"{name}: {n} frames ({cfg.width}x{cfg.height}, {cfg.n_features} features, {cfg.k_max} keyframe and "
-          f"{cfg.l_max} landmark slots), state {out['state']}; port | JAX package: tracked {out['tracked']} | "
+          f"{cfg.l_max} landmark slots), state {out['state']}, {resets[0]} resets; port | "
+          f"{ref.get('source', 'the JAX package on the CPU')}: tracked {out['tracked']} | "
           f"{ref['tracked']}, aligned {out['aligned_frames']} | {ref['aligned']}, ATE {out['ate_rmse']:.6f} | "
           f"{ref['ate']} ({100 * out['ate_rmse'] / out['path']:.3f}% of the {out['path']:.2f} path), keyframes {out['n_kf']} | {ref['n_kf']}, landmarks {out['n_lm']} | {ref['n_lm']}, "
-          f"closures {out['loop_closures']} | {ref['closures']} ({closer.n_attempts} attempts); "
+          f"closures {len(events)} | {ref['closures']} ({closer.n_attempts} attempts since the last reset); "
           f"{out['fps']:.2f} frames/s inside track_monocular, {out['fused_frames']} fused frames, "
           f"{out['epochs']} epochs, phase wall {wall:.1f} s")
     _print_paths(name, out)
@@ -846,6 +957,14 @@ def run_regime(device, name: str):
         kf, cand, inliers = max(verified, key=lambda v: v[2])
         print(f"{name}: {len(verified)} loop candidates verified; the most inliers, {inliers} ({MIN_INLIERS} needed), "
               f"at keyframe frames {kf} -> {cand}, true centres {np.linalg.norm(gt[kf] - gt[cand]):.2f} apart")
+    for i, c in enumerate(events):
+        print(f"{name} closure {i + 1} at frame {c['frame']}: keyframe slot {c['kf']} (frame {c['kf_frame']}) to "
+              f"candidate slot {c['cand']} (frame {c['cand_frame']}), true centres "
+              f"{np.linalg.norm(gt[c['kf_frame']] - gt[c['cand_frame']]):.2f} apart, scale {c['scale']:.4f}, "
+              f"{c['inliers']} inliers; ATE just before {c['ate_pre']:.4f}, just after {c['ate_post']:.4f}; ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in c["ms"].items())
+              + f"; pose graph {c['graph_n']} vertices, {c['graph_e']} edges; global BA {c['ba_cams']} cameras, "
+              f"{c['ba_points']} landmarks, {c['ba_obs']} observations")
     if ref["ate"] is not None and out["ate_rmse"] > 2.0 * ref["ate"]:
         print(f"{name}: the port's ATE {out['ate_rmse']:.6f} is more than twice the JAX package's {ref['ate']}")
     print(f"{name}: launches {launches} for {len(calls)} extractions")
@@ -915,33 +1034,212 @@ def phase_kitti_res(device) -> dict:
     return launches
 
 
-def phase_kitti_turn(device) -> dict:
-    """tests/test_e2e_kitti_scale.py::test_e2e_kitti_turn_regime: 160 frames
-    of the 500-frame corridor world, through its first 90-degree turn
-    (frames 90-126), at 2000 features and the production budgets. Gates:
-    more than 90% of the frames tracked in state OK, no untracked run of
-    TURN_MAX_LOST_RUN frames, ATE under 1.5% of the path, no local-BA
-    truncation."""
-    out, system, launches, log = run_regime(device, "kitti_turn")
+def check_map_tables(label: str, smap) -> None:
+    """Every device table of the map equal to its numpy host truth: after
+    the evictions, merges and slot reuse of a production run."""
+    import numpy as np
+
+    from orbslam_in_practice_tpu_torch.slam.map import _KF_DEVICE, _LM_DEVICE
+
+    differ = [name for name in _KF_DEVICE + _LM_DEVICE
+              if not np.array_equal(getattr(smap, name).cpu().numpy(), smap.hview(name), equal_nan=True)]
+    print(f"{label}: the map's {len(_KF_DEVICE + _LM_DEVICE)} device tables "
+          + (f"differ from the host truth: {differ}" if differ else "equal their host truth"))
+    check(not differ, f"{label}: device tables {differ} differ from the host truth")
+
+
+def check_turn_gates(log: list, ate: float, path: float, truncations: int) -> None:
+    """tests/test_e2e_kitti_scale.py::test_e2e_kitti_turn_regime's gates on
+    the first 160 frames of the 500-frame corridor run, through the first
+    90-degree turn (frames 90-126): more than 90% of the frames tracked in
+    state OK, no untracked run of TURN_MAX_LOST_RUN frames, ATE under 1.5%
+    of the path, no local-BA truncation."""
     n = len(log)
     ok = [r["tracked"] and r["state"] == "OK" for r in log]
-    lost_run = cur = 0
-    for flag in ok:
-        cur = 0 if flag else cur + 1
-        lost_run = max(lost_run, cur)
-    path = out["path"]
-    pct = 100.0 * out["ate_rmse"] / path
-    truncations = system.tracker.mapper.stats()["n_ba_truncations"]
+    lost_run = max([b - a + 1 for a, b in lost_segments(ok)] or [0])
+    pct = 100.0 * ate / path
     ref = REFERENCE_REGIMES["kitti_turn"]
-    print(f"kitti_turn: port | JAX package: {sum(ok)} | {ref['tracked_ok']} of {n} frames tracked in state OK, "
-          f"longest untracked run {lost_run} | {ref['lost_run']}, ATE {pct:.3f}% | {ref['ate_pct']}% of the "
-          f"{path:.2f} path, {truncations} local-BA truncations, {out['local_map_truncations']} local-map clips, "
-          f"{out['n_lm_evictions']} landmark evictions")
+    print(f"kitti_turn (the first {n} frames of kitti_500): port | JAX package on the CPU: {sum(ok)} | "
+          f"{ref['tracked_ok']} of {n} frames tracked in state OK, longest untracked run {lost_run} | "
+          f"{ref['lost_run']}, ATE {ate:.6f} | {ref['ate']} ({pct:.3f}% | {ref['ate_pct']}% of the {path:.2f} path), "
+          f"{truncations} local-BA truncations")
     check(sum(ok) > TURN_MIN_OK_FRACTION * n, f"kitti_turn: {sum(ok)} of {n} frames tracked in state OK")
     check(lost_run < TURN_MAX_LOST_RUN, f"kitti_turn: an untracked run of {lost_run} frames")
-    check(pct < TURN_MAX_ATE_PCT, f"kitti_turn: ATE {out['ate_rmse']} is {pct}% of the {path} path")
+    check(pct < TURN_MAX_ATE_PCT, f"kitti_turn: ATE {ate} is {pct}% of the {path} path")
     check(truncations == 0, f"kitti_turn: {truncations} local-BA truncations")
+
+
+def phase_kitti_500(device) -> dict:
+    """tests/test_e2e_kitti_scale.py::test_e2e_kitti_production_500 (BASELINE
+    config 3): the corridor world's 500 frames at 2000 features and the
+    production budgets, through every 90-degree turn, with the landmark
+    table under pressure. At frame 160 the turn regime's gates
+    (``check_turn_gates``) on the trajectory so far; at the end the test's
+    gates and _common_gates' (PROD_*), and the map's device tables equal to
+    their host truth (``check_map_tables``), with the host ms of
+    ``Tracking._local_map_landmarks``, ``SlamMap.covisibility`` and
+    ``LocalMapper.cull_keyframes`` timed on their classes. Prints the
+    landmark evictions beside the JAX package's chip run."""
+    import numpy as np
+
+    from orbslam_in_practice_tpu_torch.io.evaluation import ate_rmse
+    from orbslam_in_practice_tpu_torch.regimes import KITTI_TURN_FRAMES, build
+    from orbslam_in_practice_tpu_torch.slam.local_mapping import LocalMapper
+    from orbslam_in_practice_tpu_torch.slam.map import SlamMap
+    from orbslam_in_practice_tpu_torch.slam.tracking import Tracking
+
+    seq, cfg, n = build("kitti_500")
+    check(cfg.k_max == 256 and cfg.l_max == 16384, f"kitti_500 at k_max {cfg.k_max}, l_max {cfg.l_max}")
+    gt = seq.gt_centers()[:n]
+    turn = {}
+
+    def at_turn_end(i, system):
+        if i == KITTI_TURN_FRAMES:
+            turn.update(ate=ate_rmse(system.get_trajectory(), gt[:i])[0],
+                        truncations=system.tracker.mapper.stats()["n_ba_truncations"])
+
+    host_ms = {k: [] for k in PROD_HOST_P95_MS}
+    with class_patches((Tracking, "_local_map_landmarks", timed(host_ms["_local_map_landmarks"])),
+                       (SlamMap, "covisibility", timed(host_ms["covisibility"])),
+                       (LocalMapper, "cull_keyframes", timed(host_ms["cull_keyframes"]))):
+        out, system, launches, log = run_regime(device, "kitti_500", on_frame=at_turn_end)
+    turn_path = float(np.linalg.norm(np.diff(gt[:KITTI_TURN_FRAMES], axis=0), axis=1).sum())
+    check_turn_gates(log[:KITTI_TURN_FRAMES], turn["ate"], turn_path, turn["truncations"])
+
+    ok = [r["tracked"] and r["state"] == "OK" for r in log]
+    segments = lost_segments(ok)
+    long_losses = [(a, b) for a, b in segments if b - a >= PROD_LOST_SEGMENT and a > PROD_LOST_AFTER]
+    pct = 100.0 * out["ate_rmse"] / out["path"]
+    p95 = {k: float(np.percentile(v, 95)) if v else 0.0 for k, v in host_ms.items()}
+    ref = REFERENCE_REGIMES["kitti_500"]
+    print(f"kitti_500: port | {ref['source']}: {sum(ok)} | {ref['tracked']} of {n} frames tracked in state OK, "
+          f"ATE {pct:.3f}% | {ref['ate_pct']}% of the {out['path']:.2f} path, observations {out['n_obs']} | "
+          f"{ref['n_obs']}, landmark evictions {out['n_lm_evictions']} | {ref['evictions']}, fuse merges "
+          f"{out['n_fuse_merges']} | {ref['fuse_merges']}; {out['n_ba_truncations']} local-BA truncations, "
+          f"{out['local_map_truncations']} local-map clips, landmark slots used {out['lm_slots_hw']}, free "
+          f"{out['lm_free']}; untracked segments {segments}")
+    print("kitti_500 host ms (p95 / max / calls, gate on the p95): " + ", ".join(
+        f"{k} {p95[k]:.1f} / {max(v or [0.0]):.1f} / {len(v)} (< {PROD_HOST_P95_MS[k]})" for k, v in host_ms.items()))
+    if out["n_lm_evictions"] == 0:
+        print("kitti_500: no landmark was evicted: the landmark table never came under pressure in this run")
+    check(sum(ok) > PROD_MIN_OK_FRACTION * n, f"kitti_500: {sum(ok)} of {n} frames tracked in state OK")
+    check(not long_losses, f"kitti_500: lost segments {long_losses}")
+    for k, bound in PROD_HOST_P95_MS.items():
+        check(p95[k] < bound, f"kitti_500: p95 host ms of {k} {p95[k]} not under {bound}")
+    check(out["n_ba_truncations"] == 0, f"kitti_500: {out['n_ba_truncations']} local-BA truncations")
+    check(pct < PROD_MAX_ATE_PCT, f"kitti_500: ATE {out['ate_rmse']} is {pct}% of the {out['path']} path")
+    check(out["aligned_frames"] > PROD_MIN_ALIGNED, f"kitti_500: {out['aligned_frames']} frames aligned")
+    check(out["n_lm"] > PROD_MIN_LM and out["n_kf"] > PROD_MIN_KF,
+          f"kitti_500: {out['n_kf']} keyframes, {out['n_lm']} landmarks")
+    check_map_tables("kitti_500", system.map)
     return launches
+
+
+def phase_kitti_loop(device) -> dict:
+    """tests/test_e2e_kitti_scale.py::test_e2e_kitti_loop_production
+    (BASELINE config 4, tools/kitti_loop_probe.py): the 580-frame circuit
+    around a block and back down its first street at the production
+    budgets, loop closing on. The probe's gates: at least one Sim(3)
+    closure, the first one's ATE (of the trajectory so far, read just after
+    ``close_loop`` returns) below the ATE read just before it, fuse merges
+    under CIRCUIT_MAX_MERGES_PER_FRAME a frame, more than 85% of the frames
+    tracked in state OK; and a closure on the revisit leg (from frame
+    CIRCUIT_REVISIT_FRAME) whose global BA ran over more than
+    CIRCUIT_MIN_BA_CAMS cameras (the chunked Schur path); the map's device
+    tables equal to their host truth. Prints each closure and the JAX
+    package's chip run beside the port's figures."""
+    out, system, launches, log = run_regime(device, "kitti_loop")
+    n = len(log)
+    ok = sum(r["tracked"] and r["state"] == "OK" for r in log)
+    events = out["closure_events"]
+    ref = REFERENCE_REGIMES["kitti_loop"]
+    print(f"kitti_loop: port | {ref['source']}: {ok} | {ref['tracked']} of {n} frames tracked in state OK, "
+          f"{out['resets']} | {ref['resets']} resets, ATE {100 * out['ate_rmse'] / out['path']:.3f}% | "
+          f"{ref['ate_pct']}% of the {out['path']:.2f} path, observations {out['n_obs']} | {ref['n_obs']}, fuse "
+          f"merges {out['n_fuse_merges']} | {ref['fuse_merges']}, landmark evictions {out['n_lm_evictions']} | "
+          f"{ref['evictions']}; the JAX package's closure: {ref['closure']}")
+    check(len(events) >= 1, "kitti_loop: no loop closure")
+    first = events[0]
+    check(first["ate_post"] < first["ate_pre"],
+          f"kitti_loop: the first closure moved the ATE {first['ate_pre']} -> {first['ate_post']}")
+    revisit = [c for c in events if c["kf_frame"] >= CIRCUIT_REVISIT_FRAME]
+    check(len(revisit) >= 1, f"kitti_loop: no closure on the revisit leg (from frame {CIRCUIT_REVISIT_FRAME})")
+    check(revisit[0]["ba_cams"] > CIRCUIT_MIN_BA_CAMS, f"kitti_loop: global BA at the revisit closure over "
+          f"{revisit[0]['ba_cams']} cameras, not above {CIRCUIT_MIN_BA_CAMS}")
+    bound = CIRCUIT_MAX_MERGES_PER_FRAME * n
+    check(out["n_fuse_merges"] < bound, f"kitti_loop: {out['n_fuse_merges']} fuse merges, not under {bound}")
+    check(ok > CIRCUIT_MIN_OK_FRACTION * n, f"kitti_loop: {ok} of {n} frames tracked in state OK")
+    check_map_tables("kitti_loop", system.map)
+    return launches
+
+
+def measured(label: str, phase, *args):
+    """``phase(*args)``; prints its wall seconds and the peak device memory
+    allocated while it ran."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = phase(*args)
+    torch.cuda.synchronize()
+    print(f"{label}: {time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return result
+
+
+def _lane(name: str, device: str, conn) -> None:
+    """A lane's process: ``measured(name, <the phase name>, device)``, its
+    printed lines and its launches (or its traceback) sent back on ``conn``."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            launches = measured(name, globals()[name], torch.device(device))
+        conn.send((out.getvalue(), launches, None))
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        conn.send((out.getvalue(), None, traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class Lane:
+    """One phase run by a spawned process on the same card while the main
+    process runs the others: the tracker is bound by the host's launches,
+    so two trackers on two cores share the card with little loss.
+    ``result`` prints the lane's lines and returns its launches, or raises
+    its error; ``stop`` ends the process."""
+
+    def __init__(self, name: str, device):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.name = name
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_lane, args=(name, str(device), child), name=name)
+        self.proc.start()
+        child.close()
+
+    def result(self) -> dict:
+        try:
+            out, launches, error = self.conn.recv()
+        except EOFError:
+            raise RuntimeError(f"{self.name}'s process ended with code {self.proc.exitcode} and sent nothing") from None
+        self.proc.join()
+        print(out, end="", flush=True)
+        if error is not None:
+            raise RuntimeError(f"{self.name} failed in its process:\n{error}")
+        return launches
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
 
 
 def main() -> int:
@@ -966,7 +1264,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     device = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib_path = cuda_build.build()
     cuda_build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
@@ -989,13 +1287,25 @@ def main() -> int:
     for label, levels, n in cases:
         b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, f"{label}, {n} features", levels, n)["max_abs_err"])
     phase_tum1(device)
-    runs = [phase_step(device)]
-    launches_system, out_system, system = phase_system(device)
-    runs += [launches_system, phase_relocalize(device), phase_loop(device), phase_async(device, out_system),
-             phase_dataset(device)]
-    runs += phase_regimes(device)
-    runs += [phase_distortion(device), phase_no_false_loop(device), phase_kitti_res(device), phase_kitti_turn(device)]
-    phase_dist_ba(device, system)
+    print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    # the two production runs take as long as all the other phases: each in
+    # a process of its own on the same card, while this one runs the rest
+    lanes = [Lane(name, device) for name in LANES]
+    try:
+        runs = [measured("phase_step", phase_step, device)]
+        launches_system, out_system, system = measured("phase_system", phase_system, device)
+        runs += [launches_system, measured("phase_relocalize", phase_relocalize, device),
+                 measured("phase_loop", phase_loop, device), measured("phase_async", phase_async, device, out_system),
+                 measured("phase_dataset", phase_dataset, device)]
+        runs += measured("phase_regimes", phase_regimes, device)
+        for phase in (phase_distortion, phase_no_false_loop, phase_kitti_res):
+            runs.append(measured(phase.__name__, phase, device))
+        measured("phase_dist_ba", phase_dist_ba, device, system)
+        print(f"main process's phases done: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+        runs += [lane.result() for lane in lanes]
+    finally:
+        for lane in lanes:
+            lane.stop()
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
 
     kernels = [
@@ -1017,6 +1327,7 @@ def main() -> int:
         },
     ]
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device_info}))
     return 0

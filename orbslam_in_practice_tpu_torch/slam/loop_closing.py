@@ -25,7 +25,8 @@ The reference draws its RANSAC samples with ``jax.random.choice`` keyed 2
 Each stage runs inside a ``torch.profiler.record_function`` span
 (``lc_detect``, ``lc_sim3``, ``lc_correct`` for the pose graph, landmark
 correction and fusion, ``lc_global_ba``), and its host wall time is added
-to ``LoopCloser.stage_s``; ``closures`` records each accepted loop.
+to ``LoopCloser.stage_s``; ``closures`` records each accepted loop with its
+stages' ms and the sizes of its pose graph and global BA.
 """
 
 from __future__ import annotations
@@ -123,6 +124,7 @@ class LoopCloser:
         self.stage_s: dict = defaultdict(float)  # stage name -> host seconds, all attempts
         self.n_attempts = 0  # keyframes that ran detection
         self.closures: list = []  # one dict per accepted loop
+        self.last_sizes: dict = {}  # the latest correction's pose graph and global BA sizes
 
     @contextmanager
     def stage(self, name: str):
@@ -328,7 +330,8 @@ class LoopCloser:
             T_new[:, :3, 3] = S_opt[:, :3, 3] / s_k[:, None]
             smap.set_kf_poses(kfs, T_new)
         with self.stage("lc_global_ba"):
-            global_bundle_adjustment(smap, self.K, self.inv_level_sigma2, fixed_kfs=(cand,))
+            ba_sizes = global_bundle_adjustment(smap, self.K, self.inv_level_sigma2, fixed_kfs=(cand,))
+        self.last_sizes = dict(graph_n=n, graph_e=len(ei), **dict(zip(("ba_cams", "ba_points", "ba_obs"), ba_sizes)))
         self.n_closures += 1
         self.last_loop_seq = int(smap.kf_seq[kf_id])
         self.last_closure = (int(kf_id), int(cand))
@@ -362,7 +365,7 @@ class LoopCloser:
             self.closures.append({
                 "kf": int(kf_id), "frame": int(smap.kf_frame_id[kf_id]), "kf_seq": int(smap.kf_seq[kf_id]),
                 "cand": int(cand), "cand_seq": int(smap.kf_seq[cand]), "scale": float(s), "inliers": int(n_inl),
-                "ms": {k: (self.stage_s[k] - before.get(k, 0.0)) * 1e3 for k in STAGES},
+                "ms": {k: (self.stage_s[k] - before.get(k, 0.0)) * 1e3 for k in STAGES}, **self.last_sizes,
             })
             return True
         return False

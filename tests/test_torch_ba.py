@@ -4,7 +4,9 @@ Exact: ``build_point_obs``, ``adaptive_o_max``, ``count_obs_drops`` and the
 included-observation mask (integer bookkeeping). Within tolerance: the
 chunked Schur off-diagonal (2e-4, float32 sums in another order) and whole
 bundle adjustments, at 2 cameras (the initial map's BA, one camera fixed)
-and at 70 cameras (the chunked Schur path above DENSE_ASSEMBLY_MAX_CAMS),
+and at 70 and 106 cameras (the chunked Schur path above
+DENSE_ASSEMBLY_MAX_CAMS; 106 is the ``kitti_loop`` circuit's global BA at
+its closure, one camera fixed as the loop candidate is),
 from the same perturbed start: poses within 1e-3, points within 1e-3 of
 their depth, and per-observation chi2 within 1e-2 absolute or 1%.
 """
@@ -83,8 +85,8 @@ def _run_both(fields, iterations):
 
 @pytest.mark.parametrize(
     "n_cams,n_pts,n_fixed,iterations",
-    [(2, 150, 1, 20), (70, 300, 2, 3)],
-    ids=["2cams-initial", "70cams-chunked"],
+    [(2, 150, 1, 20), (70, 300, 2, 3), (106, 400, 1, 3)],
+    ids=["2cams-initial", "70cams-chunked", "106cams-circuit"],
 )
 def test_bundle_adjustment_matches_jax(n_cams, n_pts, n_fixed, iterations):
     rng = np.random.default_rng(n_cams)

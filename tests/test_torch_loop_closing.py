@@ -109,6 +109,10 @@ def test_port_closes_loop_and_corrects_drift():
     (rec,) = closer.closures
     assert rec["kf"] == n - 1 and rec["inliers"] >= 20 and set(rec["ms"]) == {
         "lc_detect", "lc_sim3", "lc_correct", "lc_global_ba"}
+    # the correction's sizes: every keyframe in the pose graph (the chain,
+    # covisibility edges and the loop edge) and in global BA
+    assert rec["graph_n"] == rec["ba_cams"] == tmap.n_kf_active() and rec["graph_e"] >= n
+    assert 0 < rec["ba_points"] <= tmap.l_max and rec["ba_obs"] > rec["ba_points"]
 
 
 @pytest.mark.parametrize("revisit", [False, True])

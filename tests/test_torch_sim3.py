@@ -4,9 +4,11 @@ Tolerances: ``horn_sim3`` (s, R, t compared, never the sign-free
 quaternion), ``exp_sim3``, ``log_sim3``, ``sim3_inverse`` and ``_calc_W``
 within 1e-5 (float32, both sides); the per-edge pose-graph Jacobians within
 1e-4, and finite on consistent edges, where the small-angle branch is taken
-and the other branch divides by zero; ``optimize_pose_graph`` on
-tests/test_sim3_lie.py's drifted chain with the same edges: vertices within
-1e-3.
+and the other branch divides by zero; ``optimize_pose_graph`` with the same
+edges on tests/test_sim3_lie.py's drifted 10-vertex chain and on a graph of
+the ``kitti_loop`` circuit's size (106 vertices, 515 chain and covisibility
+edges, one loop edge at scale 0.913; positions up to 46 m, the packages
+0.93e-4 apart): vertices within 1e-3.
 """
 
 import jax
@@ -126,11 +128,68 @@ def drifted_chain(n=10):
             np.stack(meas).astype(np.float32), np.array(w, np.float32), fixed), S_true
 
 
-def test_optimize_pose_graph_matches_jax():
-    args, S_true = drifted_chain()
+def circuit_graph(n=106, cand=7, kf=98, seed=0):
+    """A pose graph of the ``kitti_loop`` circuit's size, built as
+    ``LoopCloser.close_loop`` builds it: n keyframes driven around a 25 m
+    circle whose estimate drifts in heading and shrinks in scale (to 0.9),
+    the chain and the covisibility edges (2 to 5 insertions apart) measured
+    from the estimate with weights 1-8, and one loop edge from the
+    candidate ``cand`` (fixed) to ``kf`` measured from the truth at the
+    drifted scale ratio. Returns (arguments, true poses, loop edge's
+    scale)."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0.0, 2 * np.pi * (n - 1) / (n - 8), n)
+    up = np.array([0.0, 1.0, 0.0])
+    T_true = np.tile(np.eye(4), (n, 1, 1))
+    for k, a in enumerate(ang):
+        centre = 25.0 * np.array([np.sin(a), 0.0, 1.0 - np.cos(a)])
+        fwd = np.array([np.cos(a), 0.0, np.sin(a)])
+        R_wc = np.stack([np.cross(up, fwd), up, fwd], axis=1)
+        T_true[k, :3, :3] = R_wc.T
+        T_true[k, :3, 3] = -R_wc.T @ centre
+    scale = 1.0 - 0.1 * np.arange(n) / (n - 1)
+    T_est = T_true.copy()
+    for k in range(1, n):
+        rel = T_true[k] @ np.linalg.inv(T_true[k - 1])
+        yaw = 0.003 + rng.normal() * 0.001
+        Ry = np.array([[np.cos(yaw), 0.0, np.sin(yaw)], [0.0, 1.0, 0.0], [-np.sin(yaw), 0.0, np.cos(yaw)]])
+        rel[:3, :3] = Ry @ rel[:3, :3]
+        rel[:3, 3] *= scale[k]
+        T_est[k] = rel @ T_est[k - 1]
+    S = T_est.astype(np.float32)
+    pairs = [(k, k + 1) for k in range(n - 1)] + [(i, i + d) for d in range(2, 6) for i in range(n - d)]
+    s = scale[kf] / scale[cand]
+    loop = T_true[kf] @ np.linalg.inv(T_true[cand])
+    loop[:3, :] *= s
+    meas = np.stack([S[j] @ np.linalg.inv(S[i]) for i, j in pairs] + [loop]).astype(np.float32)
+    w = np.concatenate([np.maximum(rng.uniform(0.5, 8.0, n - 1), 1.0), rng.uniform(1.0, 8.0, len(pairs) - n + 1), [5.0]])
+    fixed = np.zeros(n, bool)
+    fixed[cand] = True
+    ei = np.array([i for i, _ in pairs] + [cand], np.int32)
+    ej = np.array([j for _, j in pairs] + [kf], np.int32)
+    return (S, ei, ej, meas, w.astype(np.float32), fixed), T_true, s
+
+
+@pytest.mark.parametrize("graph", ["chain10", "circuit106"])
+def test_optimize_pose_graph_matches_jax(graph):
+    if graph == "chain10":
+        args, S_true = drifted_chain()
+    else:
+        args, S_true, s = circuit_graph()
+        assert len(args[0]) == 106 and len(args[1]) == 516 and 0.9 < s < 0.92
     want = np.asarray(jpg.optimize_pose_graph(*map(jnp.asarray, args), iterations=tpg.ITERATIONS))
     got = tpg.optimize_pose_graph(*map(_t, args)).numpy()
     assert np.abs(got - want).max() < 1e-3
-    n = len(S_true)
-    assert np.linalg.norm(got[n - 1] - S_true[n - 1]) < 0.1 * np.linalg.norm(args[0][n - 1] - S_true[n - 1])
-    assert np.array_equal(got[0], args[0][0])  # the fixed vertex stays
+    fixed = np.nonzero(args[5])[0]
+    assert np.array_equal(got[fixed], args[0][fixed])  # the fixed vertex stays
+    if graph == "chain10":
+        n = len(S_true)
+        assert np.linalg.norm(got[n - 1] - S_true[n - 1]) < 0.1 * np.linalg.norm(args[0][n - 1] - S_true[n - 1])
+        return
+    # the loop edge's residual falls by over 50x
+    zero = torch.zeros((1, 7))
+    loop = [_t(a[None, k]) for a, k in ((args[0], args[1][-1]), (args[0], args[2][-1]))]
+    before = float(tpg.edge_residual(zero, zero, *loop, _t(args[3][-1:])).norm())
+    after = float(tpg.edge_residual(zero, zero, _t(got[None, args[1][-1]]), _t(got[None, args[2][-1]]),
+                                    _t(args[3][-1:])).norm())
+    assert after < before / 50

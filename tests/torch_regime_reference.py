@@ -6,9 +6,13 @@ holds the port to, on the CPU.
 RUN is any of strafe, forward, rotation (tests/test_e2e_motion_regimes.py),
 distortion (tests/test_e2e_distortion.py), no_false_loop
 (tests/test_e2e_long_sequence.py::test_no_false_loop_closures_without_revisit),
-kitti_res (tests/test_e2e_kitti_res.py) and kitti_turn
-(tests/test_e2e_kitti_scale.py::test_e2e_kitti_turn_regime); all of them
-when none is given. Each run uses its test's own sequence and configuration
+kitti_res (tests/test_e2e_kitti_res.py), kitti_turn
+(tests/test_e2e_kitti_scale.py::test_e2e_kitti_turn_regime), kitti_500
+(::test_e2e_kitti_production_500) and kitti_loop
+(::test_e2e_kitti_loop_production, tools/kitti_loop_probe.py's circuit);
+all of them when none is given (the last two take hours on the CPU: the
+JAX package's chip runs of them are KITTI500_r04.json and
+KITTI_LOOP_r05.json). Each run uses its test's own sequence and configuration
 (imported from the test, or from tools/kitti_scale_probe.py) and prints one
 JSON line: frames, tracked, aligned, ATE, keyframes, landmarks, loop
 closures (with the latest one's keyframe frames and their true distance)
@@ -33,7 +37,8 @@ import numpy as np  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-RUNS = ("strafe", "forward", "rotation", "distortion", "no_false_loop", "kitti_res", "kitti_turn")
+RUNS = ("strafe", "forward", "rotation", "distortion", "no_false_loop", "kitti_res", "kitti_turn", "kitti_500",
+        "kitti_loop")
 
 
 def build(name: str):
@@ -64,11 +69,16 @@ def build(name: str):
         cfg = SlamConfig(fx=718.0, fy=718.0, cx=1241 / 2, cy=376 / 2, width=1241, height=376, n_features=1000,
                          n_levels=4, fps=10.0, k_max=48, l_max=8192, local_window=10)
         return seq, cfg, 25
-    if name == "kitti_turn":
+    if name in ("kitti_turn", "kitti_500"):
         from tools.kitti_scale_probe import build as kitti_build
 
         seq, cfg = kitti_build(500)
-        return seq, cfg, 160
+        return seq, cfg, 160 if name == "kitti_turn" else 500
+    if name == "kitti_loop":
+        from tools.kitti_scale_probe import build as kitti_build
+
+        seq, cfg = kitti_build(580, kind="kitti_loop", step=0.35, noise_sigma=4.0, brightness_jitter=0.15)
+        return seq, cfg, 580
     raise ValueError(f"unknown run {name!r}; pick from {RUNS}")
 
 
@@ -106,7 +116,7 @@ def run(name: str) -> dict:
         kf, cand = (int(system.map.kf_frame_id[k]) for k in closer.last_closure)
         out["last_closure_frames"] = [kf, cand]
         out["last_closure_true_distance"] = float(np.linalg.norm(gt[kf] - gt[cand]))
-    if name == "kitti_turn":
+    if name.startswith("kitti_") and name != "kitti_res":
         path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
         out.update(path=path, ate_pct_of_path=100.0 * float(rmse) / path, longest_lost_run=lost_run,
                    n_ba_truncations=system.tracker.mapper.stats()["n_ba_truncations"])
