@@ -13,7 +13,13 @@ prints its device time beside its bound. It runs the TUM1
 extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
-feeding pose and velocity forward. Then it runs the whole system,
+feeding pose and velocity forward. Before that, alone on the card,
+``phase_bench`` runs the port's measuring entry points: ``python -m
+orbslam_in_practice_tpu_torch.bench``'s tracked frames/s of the same step
+(its JSON line, the CPU baseline skipped; every call must track all its
+frames) and the layer benches ``bench_frontend``, ``bench_ba`` and
+``bench_pose_graph`` at their shapes (host ms, kernel ms, launches, busy
+share and bound a line). Then it runs the whole system,
 ``SlamSystem``, on each sequence below at the JAX package's default
 settings (loop closing on, relocalisation when lost):
 
@@ -176,6 +182,12 @@ LOOP_K_MAX, LOOP_L_MAX = 48, 4096
 ANGLE_TOL = 1e-3  # rad, kernel B vs its plain version
 BIT_TOL = 0.005  # fraction of descriptor bits, kernel B vs its plain version
 POSE_TOL = 1e-3  # Tcw entries, kernel path vs plain path
+# phase_bench: the bench's calls and trials, and each layer bench's R (reps
+# timed against 2R) and trials, cut from the standalone defaults so that the
+# phase takes under two minutes (a pose-graph call takes ~2 s on the card)
+BENCH_CALLS, BENCH_TRIALS = 4, 3
+LAYER_REPS = {"bench_frontend": 20, "bench_ba": 2, "bench_pose_graph": 1}
+LAYER_TRIALS = 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -406,6 +418,38 @@ def phase_step(device) -> dict:
     plain_ms = min(times["plain"], times["plain2"])
     print(f"fused step ms/frame: kernel path {ms:.2f} ({times['kernel']:.2f}, {times['kernel2']:.2f}), "
           f"plain path {plain_ms:.2f} ({times['plain']:.2f}, {times['plain2']:.2f})")
+    return launches
+
+
+def phase_bench(device) -> dict:
+    """The port's measuring entry points on the card, before any other phase
+    shares it: ``bench.run`` (BENCH_CALLS calls of the chained step in
+    BENCH_TRIALS trials; its JSON line without the CPU baseline) and each
+    layer bench's ``run`` at its shapes with LAYER_REPS and LAYER_TRIALS.
+    Gates: every timed call tracks all its frames; each kernel launched once
+    per extraction (every ``ORBExtractor`` call in the phase)."""
+    import torch
+
+    from orbslam_in_practice_tpu_torch import bench, bench_ba, bench_frontend, bench_pose_graph
+    from orbslam_in_practice_tpu_torch.bench_kernels import card
+    from orbslam_in_practice_tpu_torch.frontend.orb import ORBExtractor
+
+    calls = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda module, *_: calls.append(1) if isinstance(module, ORBExtractor) else None
+    )
+    try:
+        reset_launches()
+        res = bench.run(device, BENCH_CALLS, BENCH_TRIALS)
+        print(json.dumps(bench.result_line(res, None, card())), flush=True)
+        for layer in (bench_frontend, bench_ba, bench_pose_graph):
+            layer.run(device, LAYER_REPS[layer.__name__.rpartition(".")[2]], LAYER_TRIALS)
+        launches = read_launches()
+    finally:
+        hook.remove()
+    print(f"bench: frames tracked per timed call {res['tracked']}; launches {launches} for {len(calls)} extractions")
+    check(min(res["tracked"]) == bench.REPS, f"bench: a call tracked {min(res['tracked'])} of {bench.REPS} frames")
+    check_launches(launches, calls, "phase_bench", (BENCH_CALLS * BENCH_TRIALS + 1) * bench.REPS)
     return launches
 
 
@@ -1288,11 +1332,12 @@ def main() -> int:
         b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, f"{label}, {n} features", levels, n)["max_abs_err"])
     phase_tum1(device)
     print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+    runs = [measured("phase_bench", phase_bench, device)]  # timings alone on the card
     # the two production runs take as long as all the other phases: each in
     # a process of its own on the same card, while this one runs the rest
     lanes = [Lane(name, device) for name in LANES]
     try:
-        runs = [measured("phase_step", phase_step, device)]
+        runs.append(measured("phase_step", phase_step, device))
         launches_system, out_system, system = measured("phase_system", phase_system, device)
         runs += [launches_system, measured("phase_relocalize", phase_relocalize, device),
                  measured("phase_loop", phase_loop, device), measured("phase_async", phase_async, device, out_system),

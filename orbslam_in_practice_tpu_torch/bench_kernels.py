@@ -16,14 +16,22 @@ versions, run both in one machine, in turns.
 ``chip_smoke.py`` times each kernel alone with the helpers here (device µs
 a launch, wrapper µs a call, the plain version's µs) and holds it against
 its bound (``bound``, ``fast_work``, ``patch_work``). Needs a CUDA device.
+
+The layer benches (``bench_frontend``, ``bench_ba``, ``bench_pose_graph``)
+measure each shape with ``layer_row``: host ms a rep by the slope over R and
+2R chained reps (``slope_ms``), and on the card the kernel ms and launches a
+rep from the profiler's device records over R reps, the device's busy share
+and the bound of the work counted for the shape (``speed_of_light_report``).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -33,7 +41,7 @@ from orbslam_in_practice_tpu_torch.ops.image import build_pyramid
 from orbslam_in_practice_tpu_torch.ops.orb import level_budgets, select_keypoints
 from orbslam_in_practice_tpu_torch.regimes import build as build_regime
 from orbslam_in_practice_tpu_torch.regimes import kitti_config
-from orbslam_in_practice_tpu_torch.utils.profiling import BYTES_PER_S, OPS_PER_S
+from orbslam_in_practice_tpu_torch.utils.profiling import BYTES_PER_S, OPS_PER_S, speed_of_light_report
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("fast_score_nms_kernel", "orb_patch_kernel")  # csrc/*.cu
@@ -88,7 +96,10 @@ def launch_ms(fn, reps: int = 50, warmup: int = 3) -> float:
 
 
 def _profile(fn, reps: int) -> list:
-    """The device kernel records of ``reps`` calls of ``fn``."""
+    """(name, device µs) of each device record (kernel, copy, fill) of
+    ``reps`` calls of ``fn``. They are read from the profiler's raw records:
+    building its event tree (``prof.events()``) takes ~30 s for the ~300k
+    records of one pose-graph call, the raw records ~1 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,15 +110,15 @@ def _profile(fn, reps: int) -> list:
             fn()
         torch.cuda.synchronize()
     return [
-        e for e in prof.events()
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        (e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
     ]
 
 
 def profiled_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device milliseconds of the launches of ``kernel`` (a substring
     of its name) that ``fn`` makes, by the profiler's kernel records."""
-    us = [e.time_range.elapsed_us() for e in _profile(fn, reps) if kernel in e.name]
+    us = [t for name, t in _profile(fn, reps) if kernel in name]
     return sum(us) / len(us) / 1e3 if us else float("nan")
 
 
@@ -115,6 +126,109 @@ def bound(ops: float, nbytes: float) -> tuple:
     """(bound ms, "operations" or "bytes"): the larger of the two times."""
     t_ops, t_bytes = ops / OPS_PER_S, nbytes / BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def card() -> str | None:
+    """The card's name and power limit as ``nvidia-smi`` gives them (for
+    example "NVIDIA H100 80GB HBM3, 700.00 W"), or None without it."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return None
+
+
+def bench_device(name: str) -> torch.device:
+    """The device ``--device`` names. A missing CUDA device is an error: a
+    measurement never falls back to the CPU."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device here (--device cpu measures the CPU)")
+        return torch.device("cuda", 0)
+    return torch.device(name)
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors, in tuples and named tuples too, each counted
+    once per appearance."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+    return total
+
+
+def chain(step, carry):
+    """A rep of a chained measurement: ``carry = step(carry, i)`` for
+    i = 0, 1, ..., so each rep's input is the one before it's output."""
+    counter = itertools.count()
+
+    def rep():
+        nonlocal carry
+        carry = step(carry, next(counter))
+
+    return rep
+
+
+def slope_ms(rep, reps: int, trials: int, device: torch.device) -> list:
+    """Host ms a rep of ``rep`` in each of ``trials`` trials: the slope
+    (t(2R) - t(R)) / R between R and 2R back-to-back reps, each run ending
+    in a synchronise, so the synchronise's fixed cost cancels."""
+    def run(n):
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            rep()
+        sync(device)
+        return time.perf_counter() - t0
+
+    run(1)
+    slopes = []
+    for _ in range(trials):
+        t_r = run(reps)
+        t_2r = run(2 * reps)
+        slopes.append((t_2r - t_r) / reps * 1e3)
+    return slopes
+
+
+def layer_row(label: str, rep, reps: int, trials: int, flops: float, bytes_: float, device: torch.device,
+              per: int = 1, unit: str = "rep") -> dict:
+    """Measure ``rep`` and print one line: host ms (median of ``slope_ms``'s
+    trials, their range), and on the card the kernel ms and launches from
+    the profiler's device records over ``reps`` reps (every kernel, copy and
+    fill), the busy share (kernel ms over host ms), and the bound of
+    ``flops`` and ``bytes_`` at the H100's peaks. Times and launches are
+    given a ``unit``: a rep over ``per`` (an LM iteration of a rep of 10);
+    ``flops`` and ``bytes_`` are the unit's."""
+    host = [ms / per for ms in slope_ms(rep, reps, trials, device)]
+    row = {"label": label, "unit": unit, "reps": reps, "trials": trials, "host_ms": statistics.median(host),
+           "host_ms_trials": host, "kernel_ms": None, "launches": None, "busy": None}
+    if device.type == "cuda":
+        records = _profile(rep, reps)
+        row["kernel_ms"] = sum(t for _, t in records) / reps / per / 1e3
+        row["launches"] = len(records) / reps / per
+        row["busy"] = row["kernel_ms"] / row["host_ms"] if row["host_ms"] > 0 else None
+    sol = speed_of_light_report(flops, bytes_)
+    row.update(flops=sol["flops"], bytes=sol["bytes_accessed"], bound_ms=sol["t_lower_bound_s"] * 1e3,
+               bound_by=sol["bound_by"])
+    if row["kernel_ms"] is None:
+        device_part = "kernel ms, launches and busy share not measured (no card)"
+    else:
+        busy = f"{row['busy']:.2%}" if row["busy"] is not None else "not measured (host slope <= 0)"
+        device_part = f"kernel {row['kernel_ms']:.6g} ms, {row['launches']:.1f} launches, busy {busy}"
+    print(f"{label}: host {row['host_ms']:.6g} ms per {unit} (median of {trials} trials of {reps} and {2 * reps} reps; "
+          f"{min(host):.6g}-{max(host):.6g}), {device_part}, bound {row['bound_ms']:.4g} ms by {row['bound_by']} "
+          f"({row['flops']:.4g} flops, {row['bytes']:.4g} bytes)", flush=True)
+    return row
 
 
 def fast_arcs(img: torch.Tensor) -> tuple:
@@ -251,10 +365,10 @@ def extractor_profile(device, reps: int) -> list:
         row = {
             "case": label,
             "all_launches": len(kernels) / reps,
-            "all_device_ms": sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3,
+            "all_device_ms": sum(t for _, t in kernels) / reps / 1e3,
         }
         for name in KERNELS:
-            us = [e.time_range.elapsed_us() for e in kernels if name in e.name]
+            us = [t for kernel, t in kernels if name in kernel]
             row[f"{name}_launches"] = len(us) / reps
             row[f"{name}_device_ms"] = sum(us) / reps / 1e3
         row["extraction_events_ms"] = events_ms(lambda: extractor(image), 50)
@@ -272,13 +386,11 @@ def main(argv=None) -> None:
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    device = torch.device("cuda", 0)
+    smi = card()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; package {Path(__file__).parent}")
     with torch.no_grad():
-        rows = extractor_profile(torch.device("cuda", 0), opts.reps)
+        rows = extractor_profile(device, opts.reps)
     if opts.json:
         opts.json.parent.mkdir(parents=True, exist_ok=True)
         opts.json.write_text(json.dumps({"card": smi, "extractor": rows}, indent=1))

@@ -104,7 +104,7 @@ class SlamMap:
         self._dev = {n: self._to_device(n) for n in _KF_DEVICE + _LM_DEVICE}
 
     @classmethod
-    def from_numpy(cls, tables: dict, device: torch.device | str = "cpu") -> "SlamMap":
+    def from_numpy(cls, tables: dict, device: torch.device | str = "cuda") -> "SlamMap":
         """A map holding another map's state: ``tables`` maps every name of
         ``TABLES`` to its host array, the per-slot counters (kf_frame_id,
         kf_seq, lm_first_kf, lm_uid, lm_obs_count, lm_found_count,
