@@ -1,0 +1,4 @@
+"""``pose_opt_share`` in the cells whose end-to-end metric is ``frame_ms_p90``: the same
+reader, under the name whose ``moves`` is that metric."""
+
+from portbench.metrics.pose_opt_share import read  # noqa: F401
