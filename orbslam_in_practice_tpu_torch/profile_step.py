@@ -13,7 +13,7 @@ with the most host and device time.
 ``--system``: runs ``SlamSystem`` on the synthetic sequence of
 ``run_slam --synthetic`` once by the host clock (ms per frame kind and per
 keyframe-epoch stage), then again under the profiler, and prints for every
-span (the step's, initialisation's and the keyframe epoch's) its count and
+span of the tracker's record (PERF.md's table) its count and
 its host and device ms, with the device's busy share and the top operators.
 Needs a CUDA device.
 """
@@ -35,7 +35,11 @@ SPANS = (
     "extract", "match_motion_r15", "match_motion_r30", "pose_opt_motion", "match_local", "pose_opt_local",
 )
 SYSTEM_SPANS = SPANS + (
+    "track", "frame_prep", "local_map", "step_readback", "keyframe_decision", "keyframe_insert",
+    "track_motion_model", "track_reference_kf", "track_local_map",
     "init_twoview", "init_global_ba", "kf_create", "kf_fuse", "kf_local_ba", "kf_cull", "kf_refresh",
+    *(f"{stage}.{part}" for stage in ("kf_create", "kf_fuse") for part in ("dispatch", "wait", "apply")),
+    "kf_local_ba.dispatch", "kf_local_ba.solve", "kf_local_ba.apply",
     "reloc", "lc_detect", "lc_sim3", "lc_correct", "lc_global_ba",
 )
 KERNELS = ("fast_score_nms_kernel", "orb_patch_kernel")  # csrc/*.cu

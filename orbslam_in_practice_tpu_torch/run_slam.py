@@ -19,7 +19,9 @@ relocalisation), apart for the frames that ran (or queued) a keyframe
 epoch, milliseconds per keyframe epoch by stage (the local-mapping stages
 and the loop closer's), frames/s, the tracked fraction, loop closures and
 the ATE, then one JSON line. ``--traj-out``, ``--map-out``, ``--log`` (one
-JSON line a frame) and ``--viz`` (a PNG of the map) write files. The
+JSON line a frame, with the spans and counters the frame recorded and the
+keyframe epochs finished meanwhile) and ``--viz`` (a PNG of the map) write
+files. The
 default device is ``cuda``; it runs on the CPU only when ``--device cpu``
 is given.
 """
@@ -37,11 +39,11 @@ import torch
 from orbslam_in_practice_tpu_torch.config import SlamConfig, load_config
 from orbslam_in_practice_tpu_torch.io.evaluation import ate_rmse
 from orbslam_in_practice_tpu_torch.io.synthetic import SyntheticSequence
+from orbslam_in_practice_tpu_torch.slam.local_mapping import STAGES as EPOCH_STAGES
 from orbslam_in_practice_tpu_torch.slam.loop_closing import STAGES as LC_STAGES
 from orbslam_in_practice_tpu_torch.system import SlamSystem
 from orbslam_in_practice_tpu_torch.utils.logging import FrameLog
 
-EPOCH_STAGES = ("kf_create", "kf_fuse", "kf_local_ba", "kf_cull", "kf_refresh")
 FRAME_KINDS = ("init", "fused", "fused_fallback", "unfused", "reloc", "reset", "lost")
 FRAME_DT = 0.1  # seconds between frames' timestamps
 
@@ -67,13 +69,18 @@ def run_frames(system: SlamSystem, frames, gt_positions=None, gt_ids=None, flog:
     when a steady-state frame was not tracked), its frames with a keyframe
     epoch apart from those without. With asynchronous mapping the epochs
     queued last are drained after the last frame, timed apart; a drain
-    longer than ``drain_timeout`` seconds raises TimeoutError.
+    longer than ``drain_timeout`` seconds raises TimeoutError. ``flog``
+    gets a line a frame: ``Tracking.frame_record``'s keys among its own,
+    and ``epochs``, the records of the keyframe epochs that finished since
+    the frame before (``StageTimer.epochs``; a synchronous epoch in its
+    own frame's line).
 
     Returns a dict: per-path frame counts and mean ms (``frame_*`` without
     an epoch, ``keyframe_*`` with one), epoch stage ms (the loop closer's
     stages over the epochs too), the tracked count, fps (frames over the
     seconds inside ``track_monocular``), final state, loop closures, map
-    stats, the asynchronous worker's figures and, with ground truth
+    stats, the asynchronous worker's figures (``queue_wait_ms``, the mean
+    time an epoch waited in the queue) and, with ground truth
     (positions of the frames ``gt_ids``, default all), the ATE.
     """
     tracker = system.tracker
@@ -83,6 +90,13 @@ def run_frames(system: SlamSystem, frames, gt_positions=None, gt_ids=None, flog:
     frame_ms = {k: [] for k in FRAME_KINDS}
     keyframe_ms = {k: [] for k in FRAME_KINDS}
     n_frames, n_tracked, max_pending = 0, 0, 0
+    queue_wait_ms = []
+
+    def take_epochs() -> list:
+        epochs = tracker.record.take_epochs()
+        queue_wait_ms.extend(ep["queue_wait_ms"] for ep in epochs if "queue_wait_ms" in ep)
+        return epochs
+
     sync()
     for ts, img in frames:
         t0 = time.perf_counter()
@@ -97,15 +111,18 @@ def run_frames(system: SlamSystem, frames, gt_positions=None, gt_ids=None, flog:
         (keyframe_ms if tracker.frame_keyframe else frame_ms)[kind].append(ms)
         if driver is not None:
             max_pending = max(max_pending, driver.pending())
+        epochs = take_epochs()
         if flog is not None:
             flog.log(frame=n_frames - 1, path=kind, keyframe=tracker.frame_keyframe, state=system.state.name,
-                     tracked=pose is not None, inliers=tracker.n_inliers, ms=ms, **system.map.stats())
+                     tracked=pose is not None, inliers=tracker.n_inliers, ms=ms, **tracker.frame_record,
+                     epochs=epochs, **system.map.stats())
     epochs_overlapped = None if driver is None else driver.n_processed
     t0 = time.perf_counter()
     if not system.wait_idle(drain_timeout):
         raise TimeoutError(f"the mapping worker did not drain within {drain_timeout} s")
     sync()
     drain_ms = (time.perf_counter() - t0) * 1e3
+    take_epochs()
     tracked_s = sum(sum(v) for v in (*frame_ms.values(), *keyframe_ms.values())) / 1e3
     mapper = tracker.mapper
     n_epochs = max(mapper.n_epochs, 1)
@@ -133,6 +150,7 @@ def run_frames(system: SlamSystem, frames, gt_positions=None, gt_ids=None, flog:
         "epochs_done_while_tracking": epochs_overlapped,
         "max_pending": max_pending if driver is not None else None,
         "drain_ms": drain_ms,
+        "queue_wait_ms": mean(queue_wait_ms) if driver is not None else None,
         "loop_closures": 0 if closer is None else closer.n_closures,
         "closures": [] if closer is None else closer.closures,
         "fused_frames": tracker.n_fused_frames,
@@ -204,7 +222,8 @@ def main(argv=None) -> dict:
           + ", ".join(f"{k} {v:.1f}" for k, v in out["epoch_stage_ms"].items()))
     if out["async_mapping"]:
         print(f"async mapping: {out['epochs_done_while_tracking']} epochs done while tracking went on, at most "
-              f"{out['max_pending']} pending, drain after the last frame {out['drain_ms']:.1f} ms")
+              f"{out['max_pending']} pending, drain after the last frame {out['drain_ms']:.1f} ms, "
+              f"{out['queue_wait_ms'] or 0.0:.1f} ms in the queue an epoch")
     ate = "no ground truth" if out["ate_rmse"] is None else f"ATE {out['ate_rmse']:.5f}"
     print(f"{out['fps']:.2f} frames/s, tracked {out['tracked']}/{out['frames']}, {ate}, {out['n_kf']} keyframes, "
           f"{out['n_lm']} landmarks, {out['loop_closures']} loop closures, on {out['device']}")

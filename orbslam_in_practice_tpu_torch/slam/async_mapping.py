@@ -19,6 +19,10 @@ worker is posted as ``(ref_kf, ref_seq, pose_before)``; the tracker applies
 it when it next takes the map lock to track, or before its keyframe
 decision, re-anchoring its last pose through the corrected reference
 keyframe (``Tracking._consume_async_events``).
+
+Each epoch, with its loop-closure attempt, leaves an epoch record in the
+tracker's record (``StageTimer.epoch``) with the time it waited in the
+queue; none of its spans lands in a frame's record.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import time
 
 import torch
 
+from orbslam_in_practice_tpu_torch.utils.logging import StageTimer
+
 
 class AsyncMapperDriver:
     """Owns the mapping worker thread and the keyframe queue of one tracker.
@@ -38,13 +44,15 @@ class AsyncMapperDriver:
     insertion once ``pending()`` reaches ``QUEUE_MAX`` (ORB-SLAM's
     SetAcceptKeyFrames gate). A worker exception is re-raised on the
     tracking thread by ``raise_errors`` (called each frame, and by
-    ``drain``).
+    ``drain``). Epoch records go to ``record`` (the tracker's; its own
+    unless given).
     """
 
     QUEUE_MAX = 2  # in flight + queued
 
-    def __init__(self, tracker):
+    def __init__(self, tracker, record: StageTimer | None = None):
         self.tracker = tracker
+        self.record = record if record is not None else StageTimer()
         device = tracker.device
         if device.type == "cuda" and device.index is None:
             # the current device belongs to the thread: pin the tracker's
@@ -69,7 +77,7 @@ class AsyncMapperDriver:
         with self._count_lock:
             self._pending += 1
             self._idle.clear()
-        self._q.put((smap, tr.mapper, tr.loop_closer, kf_id, int(smap.kf_seq[kf_id])))
+        self._q.put((smap, tr.mapper, tr.loop_closer, kf_id, int(smap.kf_seq[kf_id]), time.perf_counter_ns()))
 
     def pending(self) -> int:
         with self._count_lock:
@@ -132,19 +140,20 @@ class AsyncMapperDriver:
                         if self._pending == 0:
                             self._idle.set()
 
-    def _process(self, smap, mapper, loop_closer, kf_id: int, kf_seq: int):
-        if not mapper.process_new_keyframe(smap, kf_id, kf_seq) or loop_closer is None:
-            return
-        tr = self.tracker
-        # loop closing moves poses and landmarks wholesale: it holds the map
-        # lock throughout (a rare, one-off stall of tracking)
-        with smap.lock:
-            if not smap.kf_valid_host()[kf_id] or int(smap.kf_seq[kf_id]) != kf_seq:
+    def _process(self, smap, mapper, loop_closer, kf_id: int, kf_seq: int, queued_ns: int):
+        with self.record.epoch(kf_seq, queued_ns):
+            if not mapper.process_new_keyframe(smap, kf_id, kf_seq) or loop_closer is None:
                 return
-            ref_kf = tr.ref_kf
-            pose_before = smap.hview("kf_pose")[ref_kf].copy() if ref_kf >= 0 else None
-            ref_seq = int(smap.kf_seq[ref_kf]) if ref_kf >= 0 else -1
-            if loop_closer.attempt(smap, kf_id, mapper):
-                # the geometry jumped: tracking re-anchors when it next
-                # takes the lock (Tracking._consume_async_events)
-                tr._pending_closure_rebase = (ref_kf, ref_seq, pose_before)
+            tr = self.tracker
+            # loop closing moves poses and landmarks wholesale: it holds the
+            # map lock throughout (a rare, one-off stall of tracking)
+            with smap.lock:
+                if not smap.kf_valid_host()[kf_id] or int(smap.kf_seq[kf_id]) != kf_seq:
+                    return
+                ref_kf = tr.ref_kf
+                pose_before = smap.hview("kf_pose")[ref_kf].copy() if ref_kf >= 0 else None
+                ref_seq = int(smap.kf_seq[ref_kf]) if ref_kf >= 0 else -1
+                if loop_closer.attempt(smap, kf_id, mapper):
+                    # the geometry jumped: tracking re-anchors when it next
+                    # takes the lock (Tracking._consume_async_events)
+                    tr._pending_closure_rebase = (ref_kf, ref_seq, pose_before)

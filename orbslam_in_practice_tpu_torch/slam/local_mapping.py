@@ -21,22 +21,19 @@ mutation: every thread queues on the same (default) CUDA stream, in lock
 order. Local BA copies its problem to the host under the lock and solves it
 without the lock.
 
-Each stage of ``process_new_keyframe`` runs inside a
-``torch.profiler.record_function`` span (``kf_create``, ``kf_fuse``,
-``kf_local_ba``, ``kf_cull``, ``kf_refresh``), and its host wall time is
-added to ``LocalMapper.stage_s``; ``n_epochs`` counts the epochs.
+Each stage of ``process_new_keyframe`` is a span of the mapper's record
+(``utils/logging.py::StageTimer``), and so are the three parts of new-point
+creation, fusion and local BA; ``stage_s`` reads the stages' host seconds
+back, ``n_epochs`` counts the epochs. PERF.md's table lists the spans and
+counters and what reads each.
 """
 
 from __future__ import annotations
 
 import logging
-import time
-from collections import defaultdict
-from contextlib import contextmanager
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from orbslam_in_practice_tpu_torch.frontend.frame import Frame
 from orbslam_in_practice_tpu_torch.frontend.matcher import (
@@ -54,10 +51,12 @@ from orbslam_in_practice_tpu_torch.optim.ba import (
     bundle_adjustment,
     count_obs_drops,
 )
+from orbslam_in_practice_tpu_torch.utils.logging import StageTimer
 
 O_MAX = 12  # max observations per landmark used in invariants / local BA
 N_NEIGHBORS = 5  # covisible neighbours of new-point creation and fusion
 LOCAL_BA_ITERATIONS = 10
+STAGES = ("kf_create", "kf_fuse", "kf_local_ba", "kf_cull", "kf_refresh")
 _LOG = logging.getLogger("orbslam_tpu_torch")
 
 
@@ -199,11 +198,17 @@ def _fuse_match_neighbors(smap, pts, desc, valid, octv, nb_idx, lane_ok, K, scal
 
 class LocalMapper:
     """The local-mapping pipeline, run by Tracking after each keyframe
-    insertion or by the asynchronous worker (``slam/async_mapping.py``)."""
+    insertion or by the asynchronous worker (``slam/async_mapping.py``).
 
-    def __init__(self, config, device: torch.device | str = "cuda"):
+    It records its spans and counters in ``record`` (its own unless
+    given). ``stage_s`` (stage -> host seconds) and the ``n_*`` totals
+    read the record back from the mapper's construction on."""
+
+    def __init__(self, config, device: torch.device | str = "cuda", record: StageTimer | None = None):
         self.cfg = config
         self.device = torch.device(device)
+        self.record = record if record is not None else StageTimer()
+        self._since = self.record.snapshot()
         self.scale_factors = np.array([config.scale_factor**i for i in range(config.n_levels)], dtype=np.float32)
         inv_s2 = 1.0 / self.scale_factors**2
         self._inv_s2 = inv_s2
@@ -217,19 +222,27 @@ class LocalMapper:
         # (lm_id, lm_uid, created_at_seq) for culling: the uid guards
         # against slot recycling, the seq (not the slot) measures age
         self._recent_lms: list = []
-        self.n_ba_truncations = 0
-        self.n_ba_obs_drops = 0
-        self.n_fuse_merges = 0
-        self.n_lm_evictions = 0
-        self.stage_s: dict = defaultdict(float)  # stage name -> host seconds, all epochs
         self.n_epochs = 0
 
-    @contextmanager
-    def _stage(self, name: str):
-        t0 = time.perf_counter()
-        with record_function(name):
-            yield
-        self.stage_s[name] += time.perf_counter() - t0
+    @property
+    def stage_s(self) -> dict:
+        return self.record.seconds(STAGES, self._since)
+
+    @property
+    def n_ba_truncations(self) -> int:
+        return self.record.counted("ba_truncations", self._since)
+
+    @property
+    def n_ba_obs_drops(self) -> int:
+        return self.record.counted("ba_obs_dropped", self._since)
+
+    @property
+    def n_fuse_merges(self) -> int:
+        return self.record.counted("merges", self._since)
+
+    @property
+    def n_lm_evictions(self) -> int:
+        return self.record.counted("landmarks_evicted", self._since)
 
     def _device_get(self, *tensors) -> tuple:
         """A stage's results on the host: the wait for the device, made with
@@ -294,14 +307,19 @@ class LocalMapper:
         """Triangulate new landmarks between the new keyframe and its top
         covisible neighbours, all neighbours in one batch. The first
         accepting neighbour (in covisibility order) claims a feature."""
-        with smap.lock:
+        rec = self.record
+        with rec.stage("kf_create.dispatch"), smap.lock:
             disp = self._create_dispatch(smap, kf_id)
         if disp is None:
+            rec.count("points_created", 0)
             return 0
         outs, lanes, free1, seqs = disp
-        m_all, Xw_all, acc_all = self._device_get(*outs)
-        with smap.lock:
-            return self._create_apply(smap, kf_id, lanes, free1, seqs, m_all, Xw_all, acc_all)
+        with rec.stage("kf_create.wait"):
+            m_all, Xw_all, acc_all = self._device_get(*outs)
+        with rec.stage("kf_create.apply"), smap.lock:
+            n_created = self._create_apply(smap, kf_id, lanes, free1, seqs, m_all, Xw_all, acc_all)
+        rec.count("points_created", n_created)
+        return n_created
 
     def _create_dispatch(self, smap, kf_id: int):
         if not smap.kf_valid_host()[kf_id] or smap.n_kf_active() < 2:
@@ -402,17 +420,19 @@ class LocalMapper:
         it. Writes back the poses of keyframes still in their slots and the
         positions of landmarks not recycled meanwhile, and scrubs outlier
         observations (chi2 > 5.991) whose binding is unchanged."""
-        with smap.lock:
+        rec = self.record
+        with rec.stage("kf_local_ba.dispatch"), smap.lock:
             disp = self._ba_dispatch(smap, kf_id)
         if disp is None:
             return
         arrays, (cams, seqs, lm_ids, lm_uids, kf_idx, feat_idx, which, obs_cam) = disp
         dev = self.device
-        prob = BAProblem(
-            **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()}, K=self.K
-        )
-        poses_new, points_new, chi2 = self._device_get(*bundle_adjustment(prob, iterations=LOCAL_BA_ITERATIONS))
-        with smap.lock:
+        with rec.stage("kf_local_ba.solve"):
+            prob = BAProblem(
+                **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()}, K=self.K
+            )
+            poses_new, points_new, chi2 = self._device_get(*bundle_adjustment(prob, iterations=LOCAL_BA_ITERATIONS))
+        with rec.stage("kf_local_ba.apply"), smap.lock:
             live = self._live_keyframes(smap, dict(zip(cams, seqs)))
             sel = [i for i, k in enumerate(cams) if k in live]
             if sel:
@@ -447,7 +467,7 @@ class LocalMapper:
             return None
         if len(lm_ids) > self.ba_l_cap:
             # hard cap: keep the landmarks with the most observations
-            self.n_ba_truncations += 1
+            self.record.count("ba_truncations")
             _LOG.warning("local BA landmark hard cap: %d -> %d (kf %d)", len(lm_ids), self.ba_l_cap, kf_id)
             order = np.argsort(-smap.lm_obs_count[lm_ids], kind="stable")
             lm_ids = np.sort(lm_ids[order[: self.ba_l_cap]])
@@ -474,7 +494,7 @@ class LocalMapper:
         order = np.lexsort((obs_oct, -covis_w))
         kf_idx, feat_idx, which, obs_oct = kf_idx[order], feat_idx[order], which[order], obs_oct[order]
         if len(kf_idx) > self.ba_o_cap:
-            self.n_ba_truncations += 1
+            self.record.count("ba_truncations")
             _LOG.warning("local BA observation hard cap: %d -> %d (kf %d)", len(kf_idx), self.ba_o_cap, kf_id)
         n_obs = min(len(kf_idx), self.ba_o_cap)
         kf_idx, feat_idx, which, obs_oct = kf_idx[:n_obs], feat_idx[:n_obs], which[:n_obs], obs_oct[:n_obs]
@@ -483,8 +503,10 @@ class LocalMapper:
         max_count = int(np.bincount(which, minlength=1).max())
         o_max = adaptive_o_max(max_count, O_MAX, cap=48)
         dropped = count_obs_drops(which, len(lm_ids), o_max)
+        sizes = (len(cams), len(lm_ids), n_obs, dropped)
+        for name, n in zip(("ba_cams", "ba_points", "ba_obs", "ba_obs_dropped"), sizes):
+            self.record.count(name, n)
         if dropped:
-            self.n_ba_obs_drops += dropped
             _LOG.warning("local BA dropped %d observations beyond o_max=%d (kf %d)", dropped, o_max, kf_id)
         which = which.astype(np.int64)
         arrays = dict(
@@ -511,13 +533,15 @@ class LocalMapper:
         the covisible set: the loop closer passes the loop candidate's
         neighbourhood, so the revisit's duplicate landmarks merge into the
         corrected originals (SearchAndFuse)."""
-        with smap.lock:
+        rec = self.record
+        with rec.stage("kf_fuse.dispatch"), smap.lock:
             disp = self._fuse_dispatch(smap, kf_id, neighbors)
         if disp is None:
             return 0
         m_dev, neighbors, ids_pad, uids_pad, seqs = disp
-        (m_all,) = self._device_get(m_dev)
-        with smap.lock:
+        with rec.stage("kf_fuse.wait"):
+            (m_all,) = self._device_get(m_dev)
+        with rec.stage("kf_fuse.apply"), smap.lock:
             return self._fuse_apply(smap, kf_id, neighbors, ids_pad, uids_pad, seqs, m_all)
 
     def _fuse_dispatch(self, smap, kf_id: int, neighbors):
@@ -556,7 +580,7 @@ class LocalMapper:
         # a landmark freed or recycled while the device worked takes no
         # match results
         lm_valid_now = smap.lm_valid_host()[ids_pad] & (smap.lm_uid[ids_pad] == uids_pad)
-        n_fused = 0
+        n_obs = n_merges = 0
         for i, nb in enumerate(neighbors):
             if nb not in live:
                 continue
@@ -569,7 +593,7 @@ class LocalMapper:
             free = existing < 0
             if free.any():
                 smap.add_observations(nb, feats[free], lms[free])
-                n_fused += int(free.sum())
+                n_obs += int(free.sum())
             # merge only true duplicates: the two points agree within 5%
             # of viewing depth
             conf_lm = lms[~free]
@@ -589,9 +613,10 @@ class LocalMapper:
                         smap.replace_landmark(lm, ex)
                     else:
                         smap.replace_landmark(ex, lm)
-                    n_fused += 1
-                    self.n_fuse_merges += 1
-        return n_fused
+                    n_merges += 1
+        self.record.count("obs_fused", n_obs)
+        self.record.count("merges", n_merges)
+        return n_obs + n_merges
 
     # ---------- culling ----------
 
@@ -614,7 +639,8 @@ class LocalMapper:
             self._recent_lms = keep
             if erase:
                 smap.erase_landmarks(np.array(erase, np.int32))
-            return len(erase)
+        self.record.count("landmarks_culled", len(erase))
+        return len(erase)
 
     def cull_keyframes(self, smap, kf_id: int) -> int:
         """Remove a covisible keyframe when > 90% of its landmarks are seen
@@ -629,6 +655,7 @@ class LocalMapper:
                 int(j) for j in np.nonzero(covis[kf_id] >= 15)[0] if 2 <= smap.kf_seq[j] < cur_seq and j != kf_id
             ]
             if not candidates:
+                self.record.count("keyframes_culled", 0)
                 return 0
             obs_all = smap.hview("kf_obs")[: smap.n_kf].copy()
             oct_all = smap.hview("kf_octave")[: smap.n_kf]
@@ -658,7 +685,8 @@ class LocalMapper:
                     valid_kf[k] = False
                     obs_all[k] = -1
                     n_culled += 1
-            return n_culled
+        self.record.count("keyframes_culled", n_culled)
+        return n_culled
 
     def stats(self) -> dict:
         return {
@@ -684,7 +712,8 @@ class LocalMapper:
             if not smap.kf_valid_host()[kf_id] or (kf_seq is not None and int(smap.kf_seq[kf_id]) != kf_seq):
                 return False
         self.n_epochs += 1
-        with self._stage("kf_cull"):
+        rec = self.record
+        with rec.stage("kf_cull"):
             self.cull_landmarks(smap, kf_id)
             with smap.lock:
                 # landmark-table pressure: evict the weakest old landmarks,
@@ -702,22 +731,22 @@ class LocalMapper:
                         [smap.keyframe_landmarks(k) for k in window]
                         + [np.array([i for i, _, _ in self._recent_lms], np.int64)]
                     )
-                    self.n_lm_evictions += smap.evict_landmarks(headroom - cap, protect)
-        with self._stage("kf_create"):
+                    rec.count("landmarks_evicted", smap.evict_landmarks(headroom - cap, protect))
+        with rec.stage("kf_create"):
             self.create_new_points(smap, kf_id)
-        with self._stage("kf_fuse"):
+        with rec.stage("kf_fuse"):
             self.fuse_neighbors(smap, kf_id)
-        with self._stage("kf_local_ba"):
+        with rec.stage("kf_local_ba"):
             with smap.lock:
                 n_active = smap.n_kf_active()
             if n_active >= 3:
                 self.local_ba(smap, kf_id)
-        with self._stage("kf_cull"):
+        with rec.stage("kf_cull"):
             with smap.lock:
                 n_active = smap.n_kf_active()
             if n_active >= 8:
                 self.cull_keyframes(smap, kf_id)
-        with self._stage("kf_refresh"):
+        with rec.stage("kf_refresh"):
             with smap.lock:
                 kf_lms = smap.keyframe_landmarks(kf_id) if smap.kf_valid_host()[kf_id] else np.zeros(0, np.int64)
             self.refresh_landmarks(smap, kf_lms)

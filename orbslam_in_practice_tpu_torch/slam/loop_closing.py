@@ -22,22 +22,18 @@ The reference draws its RANSAC samples with ``jax.random.choice`` keyed 2
 (first round) and 3 + r (growth round r); here they are given
 (``sample_idx[round]``) or drawn from a ``torch.Generator`` seeded the same.
 
-Each stage runs inside a ``torch.profiler.record_function`` span
-(``lc_detect``, ``lc_sim3``, ``lc_correct`` for the pose graph, landmark
-correction and fusion, ``lc_global_ba``), and its host wall time is added
-to ``LoopCloser.stage_s``; ``closures`` records each accepted loop with its
-stages' ms and the sizes of its pose graph and global BA.
+Each stage is a span of the closer's record
+(``utils/logging.py::StageTimer``): ``lc_detect``, ``lc_sim3``,
+``lc_correct`` for the pose graph, landmark correction and fusion,
+``lc_global_ba``; ``stage_s`` reads their host seconds back, and
+``closures`` records each accepted loop with its stages' ms and the sizes
+of its pose graph and global BA. PERF.md's table lists the spans.
 """
 
 from __future__ import annotations
 
-import time
-from collections import defaultdict
-from contextlib import contextmanager
-
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from orbslam_in_practice_tpu_torch.frontend.matcher import _argmin_by_col, _min_by_row, match_descriptor_sets
 from orbslam_in_practice_tpu_torch.geometry.sim3 import horn_sim3
@@ -46,6 +42,7 @@ from orbslam_in_practice_tpu_torch.optim.pose_graph import optimize_pose_graph
 from orbslam_in_practice_tpu_torch.slam.global_ba import global_bundle_adjustment
 from orbslam_in_practice_tpu_torch.slam.initializer import ransac_samples
 from orbslam_in_practice_tpu_torch.slam.place_recognition import center as place_center
+from orbslam_in_practice_tpu_torch.utils.logging import StageTimer
 
 N_CAND = 3  # candidates verified a keyframe
 N_HYP = 512  # Horn hypotheses, one batch
@@ -111,8 +108,14 @@ def sim3_ransac(pa, pb, uv_a, uv_b, inv_sigma2_a, inv_sigma2_b, valid, K, sample
 
 
 class LoopCloser:
-    def __init__(self, config, device: torch.device | str = "cuda"):
+    """Loop detection, verification and correction at a keyframe. Its
+    spans go to ``record`` (its own unless given); ``stage_s`` reads them
+    back from the closer's construction on."""
+
+    def __init__(self, config, device: torch.device | str = "cuda", record: StageTimer | None = None):
         self.cfg = config
+        self.record = record if record is not None else StageTimer()
+        self._since = self.record.snapshot()
         self.device = torch.device(device)
         self.K = config.cam.K(self.device)
         self.inv_level_sigma2 = 1.0 / np.asarray(
@@ -121,17 +124,13 @@ class LoopCloser:
         self.last_loop_seq = -(10**9)
         self.n_closures = 0
         self.last_closure = None  # (kf_id, cand) of the latest accepted loop
-        self.stage_s: dict = defaultdict(float)  # stage name -> host seconds, all attempts
         self.n_attempts = 0  # keyframes that ran detection
         self.closures: list = []  # one dict per accepted loop
         self.last_sizes: dict = {}  # the latest correction's pose graph and global BA sizes
 
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        with record_function(name):
-            yield
-        self.stage_s[name] += time.perf_counter() - t0
+    @property
+    def stage_s(self) -> dict:
+        return self.record.seconds(STAGES, self._since)
 
     # ---------------- place recognition ----------------
 
@@ -288,7 +287,7 @@ class LoopCloser:
         """Essential-graph optimisation with the loop edge; write back the
         corrected poses and landmarks; then global BA with the candidate
         fixed."""
-        with self.stage("lc_correct"):
+        with self.record.stage("lc_correct"):
             kfs = smap.valid_keyframes_by_seq()  # temporal order, safe under slot recycling
             n = len(kfs)
             pos_of = np.full(smap.k_max, -1, np.int64)
@@ -329,7 +328,7 @@ class LoopCloser:
             T_new[:, :3, :3] = sR / s_k[:, None, None]
             T_new[:, :3, 3] = S_opt[:, :3, 3] / s_k[:, None]
             smap.set_kf_poses(kfs, T_new)
-        with self.stage("lc_global_ba"):
+        with self.record.stage("lc_global_ba"):
             ba_sizes = global_bundle_adjustment(smap, self.K, self.inv_level_sigma2, fixed_kfs=(cand,))
         self.last_sizes = dict(graph_n=n, graph_e=len(ei), **dict(zip(("ba_cams", "ba_points", "ba_obs"), ba_sizes)))
         self.n_closures += 1
@@ -348,24 +347,25 @@ class LoopCloser:
         if int(smap.kf_seq[kf_id]) - self.last_loop_seq < 10:
             return False
         self.n_attempts += 1
-        before = dict(self.stage_s)
-        with self.stage("lc_detect"):
+        before = self.stage_s
+        with self.record.stage("lc_detect"):
             cands = self.detect_candidates(smap, kf_id)
         for cand in cands:
-            with self.stage("lc_sim3"):
+            with self.record.stage("lc_sim3"):
                 ok, s, R, t, n_inl = self.compute_sim3(smap, kf_id, cand)
             if not ok:
                 continue
             self.close_loop(smap, kf_id, cand, s, R, t)
-            with self.stage("lc_correct"):
+            with self.record.stage("lc_correct"):
                 covis = smap.covisibility()
                 nbs = [cand] + [int(j) for j in np.argsort(-covis[cand])[:4] if covis[cand][j] >= 15 and j != kf_id]
                 if mapper.fuse_neighbors(smap, kf_id, neighbors=nbs):
                     mapper.refresh_landmarks(smap, smap.keyframe_landmarks(kf_id))
+            after = self.stage_s
             self.closures.append({
                 "kf": int(kf_id), "frame": int(smap.kf_frame_id[kf_id]), "kf_seq": int(smap.kf_seq[kf_id]),
                 "cand": int(cand), "cand_seq": int(smap.kf_seq[cand]), "scale": float(s), "inliers": int(n_inl),
-                "ms": {k: (self.stage_s[k] - before.get(k, 0.0)) * 1e3 for k in STAGES}, **self.last_sizes,
+                "ms": {k: (after.get(k, 0.0) - before.get(k, 0.0)) * 1e3 for k in STAGES}, **self.last_sizes,
             })
             return True
         return False

@@ -22,12 +22,11 @@ velocity update. Same 11 inputs and 7 outputs. The reference's
 ``torch.where``; like the fixed-step pose optimisation, this keeps the
 step free of host synchronisation.
 
-Each stage runs inside a ``torch.profiler.record_function`` span (the
-step's extract, match_motion_r15, match_motion_r30, pose_opt_motion,
-match_local, pose_opt_local; initialisation's init_twoview and
-init_global_ba; relocalisation's reloc; the loop closer's lc_detect,
-lc_sim3, lc_correct and lc_global_ba), which ``profile_step.py`` reads; a
-span costs a few microseconds of host time when no profiler is running.
+Every stage runs inside a span of the tracker's record
+(``utils/logging.py::StageTimer``, ``Tracking.record``), which the mapper,
+the loop closer, the fused step and the mapping worker share; after each
+frame ``frame_record`` holds what the frame recorded. PERF.md's table
+lists the spans and counters and what reads each.
 """
 
 from __future__ import annotations
@@ -37,7 +36,6 @@ from enum import Enum
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from orbslam_in_practice_tpu_torch.frontend.matcher import (
     search_by_projection,
@@ -54,6 +52,7 @@ from orbslam_in_practice_tpu_torch.slam.local_mapping import LocalMapper
 from orbslam_in_practice_tpu_torch.slam.loop_closing import LoopCloser
 from orbslam_in_practice_tpu_torch.slam.map import SlamMap, _host
 from orbslam_in_practice_tpu_torch.slam.relocalization import relocalize
+from orbslam_in_practice_tpu_torch.utils.logging import StageTimer
 
 LOCAL_MAP_MAX = 4096  # padded local-map landmark budget
 INIT_BA_ITERATIONS = 20  # LM iterations of the two-keyframe global BA
@@ -86,10 +85,16 @@ class FusedSteadyStep(nn.Module):
     ``f_max``, the length of the motion-model id list, is the map's
     per-keyframe feature budget, which the reference sizes for the
     doubled-budget initialisation extractor.
+
+    Its stages are spans of ``record`` (its own unless given). Each call
+    leaves ``match_counts`` on the device: the motion-model matches at
+    radius 15 and 30 and the local-map matches, int64 (3,).
     """
 
-    def __init__(self, cfg, use_kernels: bool = True):
+    def __init__(self, cfg, use_kernels: bool = True, record: StageTimer | None = None):
         super().__init__()
+        self.record = record if record is not None else StageTimer()
+        self.match_counts = None
         self.n_levels = cfg.n_levels
         self.extractor = ORBExtractor(
             cfg.n_features, cfg.scale_factor, cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast,
@@ -111,13 +116,13 @@ class FusedSteadyStep(nn.Module):
         Returns (frame, Tcw, obs (N,) landmark id per feature or -1,
         velocity, ok1 (motion model tracked), ok (frame tracked), n_inliers).
         """
-        F, K, sf = self.f_max, self.K, self.scale_factors
+        F, K, sf, rec = self.f_max, self.K, self.scale_factors, self.record
         ids = packed_ids.long()
         mm_ids = ids[:F]
         loc_ids = ids[F : F + LOCAL_MAP_MAX]
         mm_n = ids[F + LOCAL_MAP_MAX]
         loc_n = ids[F + LOCAL_MAP_MAX + 1]
-        with record_function("extract"):
+        with rec.stage("extract"):
             frame = self.extractor(image.to(torch.float32) * (1.0 / 256.0))
         inv_s2 = self.extractor.inv_level_sigma2[torch.clamp(frame.octave.long(), 0, self.n_levels - 1)]
         pred = velocity @ last_pose
@@ -126,14 +131,15 @@ class FusedSteadyStep(nn.Module):
         arange = torch.arange(max(F, LOCAL_MAP_MAX), device=ids.device)
         v1 = (arange[:F] < mm_n) & lm_valid[mm_ids]
         p1, d1, o1 = lm_pos[mm_ids], lm_desc[mm_ids], lm_oct[mm_ids]
-        with record_function("match_motion_r15"):
+        with rec.stage("match_motion_r15"):
             m15 = search_by_projection(p1, d1, v1, o1, pred, frame, K, 15.0, sf)[0]
-        with record_function("match_motion_r30"):
+        with rec.stage("match_motion_r30"):
             m30 = search_by_projection(p1, d1, v1, o1, pred, frame, K, 30.0, sf)[0]
-        m1 = torch.where(torch.sum(m15 >= 0) >= 20, m15, m30)
+        n15 = torch.sum(m15 >= 0)
+        m1 = torch.where(n15 >= 20, m15, m30)
         n_match1 = torch.sum(m1 >= 0)
         n_feat = frame.n_features
-        with record_function("pose_opt_motion"):
+        with rec.stage("pose_opt_motion"):
             _, Xw1, has1 = _obs_from_matches(n_feat, m1, mm_ids, lm_pos)
             Tcw1, _, n1 = pose_optimization(pred, Xw1, frame.xy, inv_s2, has1 & frame.valid, K)
         ok1 = (n_match1 >= 20) & (n1 >= 10)
@@ -141,19 +147,20 @@ class FusedSteadyStep(nn.Module):
 
         # stage 2: local map, seeded by stage 1's pose
         v2 = (arange[:LOCAL_MAP_MAX] < loc_n) & lm_valid[loc_ids]
-        with record_function("match_local"):
+        with rec.stage("match_local"):
             m2 = search_by_projection(
                 lm_pos[loc_ids], lm_desc[loc_ids], v2, lm_oct[loc_ids], Tcw1, frame, K, 4.0, sf,
                 pts_normal=lm_normal[loc_ids],
                 pts_min_dist=lm_mind[loc_ids],
                 pts_max_dist=lm_maxd[loc_ids],
             )[0]
-        with record_function("pose_opt_local"):
+        with rec.stage("pose_opt_local"):
             obs2, Xw2, has2 = _obs_from_matches(n_feat, m2, loc_ids, lm_pos)
             Tcw2, inl2, n2 = pose_optimization(Tcw1, Xw2, frame.xy, inv_s2, has2 & frame.valid, K)
         obs2 = torch.where(inl2, obs2, -1).to(torch.int32)
         ok = ok1 & (n2 >= 30)
         velocity_new = Tcw2 @ torch.linalg.inv_ex(last_pose)[0]
+        self.match_counts = torch.stack([n15, torch.sum(m30 >= 0), torch.sum(m2 >= 0)])
         return frame, Tcw2, obs2, velocity_new, ok1, ok, n2
 
 
@@ -178,7 +185,16 @@ class Tracking:
 
     ``use_fused`` (default True) routes steady-state frames through
     ``FusedSteadyStep``; False runs the unfused per-stage flow on every
-    frame. ``n_fused_frames`` counts the frames the fused step ran on.
+    frame. ``n_fused_frames`` counts the frames the fused step ran on,
+    ``n_local_map_truncations`` the local maps clipped to LOCAL_MAP_MAX.
+
+    ``record`` is the tracker's ``StageTimer``: every mapper and loop
+    closer it makes, its fused step and its mapping worker record there.
+    After each frame ``frame_record`` holds the frame's ``spans_ms`` and
+    ``counts`` (this thread's: a synchronous epoch's included, never an
+    asynchronous one's) and the ``kf_seq`` of the keyframe it inserted, or
+    -1; each epoch leaves its own record in ``record.epochs``, linked to
+    its frame by ``kf_seq`` alone.
 
     After each frame, ``frame_path`` names the path it took: 'init'
     (initialisation), 'fused' (the fused step alone), 'fused_fallback' (the
@@ -202,7 +218,8 @@ class Tracking:
         self.cam = config.cam
         self.device = torch.device(device)
         self.K = self.cam.K(self.device)
-        self.step = FusedSteadyStep(config).to(self.device)
+        self.record = StageTimer()
+        self.step = FusedSteadyStep(config, record=self.record).to(self.device)
         self.extractor = self.step.extractor
         # doubled feature budget for initialisation
         self.ini_extractor = ORBExtractor(
@@ -212,8 +229,8 @@ class Tracking:
         self.scale_factors = self.step.scale_factors
         self.inv_level_sigma2 = self.extractor.inv_level_sigma2
         self.map = self._new_map()
-        self.mapper = LocalMapper(config, self.device)
-        self.loop_closer = LoopCloser(config, self.device) if config.enable_loop_closing else None
+        self.mapper = LocalMapper(config, self.device, self.record)
+        self.loop_closer = LoopCloser(config, self.device, self.record) if config.enable_loop_closing else None
 
         self.state = TrackingState.NO_IMAGES
         self.frame_id = -1
@@ -234,16 +251,24 @@ class Tracking:
         # anchoring to the keyframe lets later BA refine past frames
         self.trajectory: list = []
         self.n_inliers = 0
-        self.n_local_map_truncations = 0
         self.new_kf_ids: list = []
         self.use_fused = True
-        self.n_fused_frames = 0
         self.frame_path = None
         self.frame_keyframe = False
+        self.frame_record = None
+        self._frame_kf_seq = -1
         # a loop closure posted by the worker, (ref_kf, ref_seq, pose_before),
         # read and cleared under the map lock
         self._pending_closure_rebase = None
-        self.async_driver = AsyncMapperDriver(self) if config.async_mapping else None
+        self.async_driver = AsyncMapperDriver(self, self.record) if config.async_mapping else None
+
+    @property
+    def n_fused_frames(self) -> int:
+        return self.record.calls.get("step_readback", 0)  # one read-back a step
+
+    @property
+    def n_local_map_truncations(self) -> int:
+        return self.record.counters.get("local_map_truncated", 0)
 
     def _new_map(self) -> SlamMap:
         return self.adopt_map(SlamMap(self.cfg.k_max, self.cfg.l_max, self.step.f_max, device=self.device))
@@ -265,9 +290,9 @@ class Tracking:
             self._pending_closure_rebase = None
         old_map = self.map
         self.map = self._new_map()
-        self.mapper = LocalMapper(self.cfg, self.device)
+        self.mapper = LocalMapper(self.cfg, self.device, self.record)
         if self.loop_closer is not None:
-            self.loop_closer = LoopCloser(self.cfg, self.device)
+            self.loop_closer = LoopCloser(self.cfg, self.device, self.record)
         self.state = TrackingState.NOT_INITIALIZED
         self.last_pose = None
         self.last_obs = None
@@ -289,6 +314,14 @@ class Tracking:
     def track_mono(self, image: np.ndarray, timestamp: float):
         """One frame: image (H, W) float32 grayscale in [0, 255].
         Returns the frame's Tcw (4, 4) numpy, or None when not tracked."""
+        self._frame_kf_seq = -1
+        with self.record.scope() as sc:
+            with self.record.stage("track"):
+                pose = self._track_mono(image, timestamp)
+        self.frame_record = {"spans_ms": sc.spans_ms(), "counts": dict(sc.counts), "kf_seq": self._frame_kf_seq}
+        return pose
+
+    def _track_mono(self, image: np.ndarray, timestamp: float):
         self.frame_id += 1
         self.frame_keyframe = False
         if self.async_driver is not None:
@@ -303,7 +336,8 @@ class Tracking:
                 self.velocity = None
             elif status == "stage1":  # motion model failed: reference keyframe
                 if frame is None:
-                    frame = self.extractor(self._to_device(image))
+                    with self.record.stage("extract"):
+                        frame = self.extractor(self._to_device(image))
                 with self.map.lock:
                     pose = self.last_pose if self._track_frame(frame, try_motion=False) else None
             with self.map.lock:
@@ -315,7 +349,8 @@ class Tracking:
         initializing = self.state in (TrackingState.NO_IMAGES, TrackingState.NOT_INITIALIZED)
         self.frame_path = "init" if initializing else "unfused" if self.state == TrackingState.OK else "reset"
         extractor = self.ini_extractor if initializing else self.extractor
-        frame = extractor(self._to_device(image))
+        with self.record.stage("extract"):
+            frame = extractor(self._to_device(image))
         if self.state == TrackingState.NO_IMAGES:
             self.state = TrackingState.NOT_INITIALIZED
 
@@ -435,7 +470,7 @@ class Tracking:
         prev[sel] = _host(frame.xy)[m_h[sel]]
         self._prev_matched = torch.from_numpy(prev).to(self.device)
 
-        with record_function("init_twoview"):
+        with self.record.stage("init_twoview"):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)  # the same samples on every attempt
             result = initialize_two_view(
@@ -473,7 +508,7 @@ class Tracking:
         )
         self.mapper.refresh_landmarks(self.map, ids)
 
-        with record_function("init_global_ba"):
+        with self.record.stage("init_global_ba"):
             self._initial_global_ba(kf1, kf2, ids)
 
         Xn = self.map.hview("lm_pos")[ids].copy()
@@ -531,47 +566,54 @@ class Tracking:
         tries the reference keyframe on the returned frame) or 'stage2'
         (local map failed: lost, as in the unfused flow). Its flags, inlier
         count, observations, pose and velocity come back in one
-        device-to-host copy, made with the map lock released.
+        device-to-host copy, made with the map lock released; the step's
+        match counts ride on it.
         """
+        rec = self.record
         with self.map.lock:
-            # a closure posted before the launch: the step would match the
-            # corrected map from a stale prediction
-            if self._consume_async_events():
-                return "stage1", None, None
-            mm = np.unique(self.last_obs[self.last_obs >= 0])
-            if len(mm) < 10:
-                return "stage1", None, None
-            loc = self._local_map_landmarks()
-            if len(loc) == 0:
-                return "stage1", None, None
-            m = self.map
-            F = m.f_max
-            packed = np.empty(F + LOCAL_MAP_MAX + 2, np.int32)
-            packed[:F] = _pad_ids(mm, F)
-            packed[F : F + LOCAL_MAP_MAX] = _pad_ids(loc, LOCAL_MAP_MAX)
-            packed[F + LOCAL_MAP_MAX] = min(len(mm), F)
-            packed[F + LOCAL_MAP_MAX + 1] = min(len(loc), LOCAL_MAP_MAX)
-            dev = self.device
+            with rec.stage("frame_prep"):
+                # a closure posted before the launch: the step would match
+                # the corrected map from a stale prediction
+                if self._consume_async_events():
+                    return "stage1", None, None
+                mm = np.unique(self.last_obs[self.last_obs >= 0])
+                rec.count("mm_candidates", len(mm))
+                if len(mm) < 10:
+                    return "stage1", None, None
+                loc = self._local_map_landmarks()
+                if len(loc) == 0:
+                    return "stage1", None, None
+                m = self.map
+                F = m.f_max
+                packed = np.empty(F + LOCAL_MAP_MAX + 2, np.int32)
+                packed[:F] = _pad_ids(mm, F)
+                packed[F : F + LOCAL_MAP_MAX] = _pad_ids(loc, LOCAL_MAP_MAX)
+                packed[F + LOCAL_MAP_MAX] = min(len(mm), F)
+                packed[F + LOCAL_MAP_MAX + 1] = min(len(loc), LOCAL_MAP_MAX)
+                dev = self.device
+                image_d = torch.from_numpy(encode_image(image)).to(dev)
+                packed_d = torch.from_numpy(packed).to(dev)
             frame, Tcw, obs, vel, ok1, ok, n2 = self.step(
-                torch.from_numpy(encode_image(image)).to(dev), torch.from_numpy(packed).to(dev), self.velocity,
-                self.last_pose, m.lm_pos, m.lm_desc_pm1, m.lm_valid, m.lm_octave,
+                image_d, packed_d, self.velocity, self.last_pose, m.lm_pos, m.lm_desc_pm1, m.lm_valid, m.lm_octave,
                 m.lm_normal, m.lm_min_dist, m.lm_max_dist,
             )
-            self.n_fused_frames += 1
             flags = torch.stack([ok1.to(torch.int32), ok.to(torch.int32), n2.to(torch.int32)])
             out = torch.cat([
-                flags, obs.to(torch.int32),
+                flags, self.step.match_counts.to(torch.int32), obs.to(torch.int32),
                 Tcw.contiguous().view(torch.int32).reshape(16), vel.contiguous().view(torch.int32).reshape(16),
             ])
-        out = out.cpu().numpy()
+        with rec.stage("step_readback"):
+            out = out.cpu().numpy()
         n_feat = obs.shape[0]
         ok1_h, ok_h, n2_h = bool(out[0]), bool(out[1]), int(out[2])
+        for name, n in zip(("matches_r15", "matches_r30", "matches_local", "inliers"), (*out[3:6], n2_h)):
+            rec.count(name, n)
         if not ok1_h:
             return "stage1", frame, None
         if not ok_h:
             return "stage2", frame, None
-        obs_h = out[3 : 3 + n_feat]
-        Tcw_h = out[3 + n_feat : 19 + n_feat].view(np.float32).reshape(4, 4)
+        obs_h = out[6 : 6 + n_feat]
+        Tcw_h = out[6 + n_feat : 22 + n_feat].view(np.float32).reshape(4, 4)
         with self.map.lock:
             self._prev_pose = self.last_pose
             self.last_pose = Tcw
@@ -587,17 +629,22 @@ class Tracking:
 
     def _track_frame(self, frame, try_motion: bool = True) -> bool:
         self._consume_async_events()
+        rec = self.record
         ok = False
         if try_motion and self.velocity is not None:
-            ok = self._track_with_motion_model(frame)
+            with rec.stage("track_motion_model"):
+                ok = self._track_with_motion_model(frame)
         if not ok:
-            ok = self._track_reference_keyframe(frame)
+            with rec.stage("track_reference_kf"):
+                ok = self._track_reference_keyframe(frame)
         if ok:
-            ok = self._track_local_map(frame)
+            with rec.stage("track_local_map"):
+                ok = self._track_local_map(frame)
         if not ok:
             self.state = TrackingState.LOST
             self.velocity = None
             return False
+        rec.count("inliers", self.n_inliers)
         if self.last_pose is not None:
             self.velocity = self.last_pose @ torch.linalg.inv_ex(self._prev_pose)[0]
         if self._need_new_keyframe(frame):
@@ -646,6 +693,7 @@ class Tracking:
         for radius in (15.0, 30.0):
             matches = search_by_projection(pts, desc, valid, octv, pred, frame, self.K, radius, self.scale_factors)[0]
             n_matches = int((matches >= 0).sum())
+            self.record.count(f"matches_r{radius:.0f}", n_matches)
             if n_matches >= 20:
                 break
         if n_matches < 20:
@@ -683,26 +731,29 @@ class Tracking:
         """The local map: landmarks of the keyframes that see the last
         frame's landmarks and of their top covisible neighbours, at most
         LOCAL_MAP_MAX (the most observed kept, the clip counted)."""
-        cur_lms = np.unique(self.last_obs[self.last_obs >= 0])
-        if len(cur_lms) == 0:
-            return cur_lms
-        kf_idx, _, _ = self.map.observations_of(cur_lms)
-        k1 = np.unique(kf_idx)
-        covis = self.map.covisibility()
-        local_kfs = set(int(k) for k in k1)
-        for k in list(local_kfs):
-            for j in np.argsort(-covis[k])[:3]:
-                if covis[k][j] >= 15:
-                    local_kfs.add(int(j))
-        lms = [self.map.keyframe_landmarks(k) for k in sorted(local_kfs)]
-        if not lms:
-            return cur_lms
-        out = np.unique(np.concatenate(lms))
-        if len(out) > LOCAL_MAP_MAX:
-            self.n_local_map_truncations += 1
-            order = np.argsort(-self.map.lm_obs_count[out], kind="stable")
-            out = np.sort(out[order[:LOCAL_MAP_MAX]])
-        return out
+        with self.record.stage("local_map"):
+            cur_lms = np.unique(self.last_obs[self.last_obs >= 0])
+            if len(cur_lms) == 0:
+                return cur_lms
+            kf_idx, _, _ = self.map.observations_of(cur_lms)
+            k1 = np.unique(kf_idx)
+            covis = self.map.covisibility()
+            local_kfs = set(int(k) for k in k1)
+            for k in list(local_kfs):
+                for j in np.argsort(-covis[k])[:3]:
+                    if covis[k][j] >= 15:
+                        local_kfs.add(int(j))
+            lms = [self.map.keyframe_landmarks(k) for k in sorted(local_kfs)]
+            if not lms:
+                return cur_lms
+            out = np.unique(np.concatenate(lms))
+            truncated = len(out) > LOCAL_MAP_MAX
+            if truncated:
+                order = np.argsort(-self.map.lm_obs_count[out], kind="stable")
+                out = np.sort(out[order[:LOCAL_MAP_MAX]])
+            self.record.count("local_map_truncated", truncated)
+            self.record.count("local_map_size", len(out))
+            return out
 
     def _track_local_map(self, frame) -> bool:
         """Project the local map (radius 4, landmark invariants), then
@@ -713,10 +764,11 @@ class Tracking:
         pts, desc, valid, octv, ids_pad, normal, min_d, max_d = self._gather_landmark_arrays(
             lm_ids, LOCAL_MAP_MAX, invariants=True
         )
-        matches = search_by_projection(
+        matches = _host(search_by_projection(
             pts, desc, valid, octv, self.last_pose, frame, self.K, 4.0, self.scale_factors,
             pts_normal=normal, pts_min_dist=min_d, pts_max_dist=max_d,
-        )[0]
+        )[0])
+        self.record.count("matches_local", (matches >= 0).sum())
         Tcw, obs, n_in = self._pose_opt_from_matches(frame, ids_pad, matches, self.last_pose)
         if n_in < 30:
             return False
@@ -731,57 +783,60 @@ class Tracking:
         keyframes. Asynchronous mapping gates it on the worker's queue: none
         when QUEUE_MAX epochs are pending, and with one pending only on the
         inlier criteria."""
-        frames_since_kf = self.frame_id - self.last_kf_frame_id
-        if frames_since_kf < 1:
-            return False
-        if (
-            self.last_reloc_frame_id >= 0
-            and self.frame_id < self.last_reloc_frame_id + int(self.cfg.fps)
-            and self.map.n_kf_active() > int(self.cfg.fps)
-        ):
-            return False
-        # tracked landmarks of the reference keyframe with >= min_obs
-        # observations; right after initialisation every landmark has 2
-        min_obs = 3 if self.map.n_kf_active() > 2 else 2
-        ref_obs = self.map.kf_obs_host()[self.ref_kf]
-        seen = ref_obs[ref_obs >= 0]
-        ref_tracked = int((self.map.lm_obs_count[seen] >= min_obs).sum()) if len(seen) else 0
-        c2 = self.n_inliers < 0.9 * ref_tracked and self.n_inliers > 15
-        long_gap = frames_since_kf >= max(2, int(self.cfg.fps))
-        self._peak_inliers_since_kf = max(self._peak_inliers_since_kf, self.n_inliers)
-        decay = (
-            ref_tracked < self.n_inliers
-            and self.n_inliers < 0.7 * self._peak_inliers_since_kf
-            and frames_since_kf >= 2
-            and self.n_inliers > 15
-        )
-        if not (c2 or decay or (long_gap and self.n_inliers >= 30)):
-            return False
-        if self.async_driver is not None:
-            pending = self.async_driver.pending()
-            if pending >= self.async_driver.QUEUE_MAX or (pending >= 1 and not (c2 or decay)):
+        with self.record.stage("keyframe_decision"):
+            frames_since_kf = self.frame_id - self.last_kf_frame_id
+            if frames_since_kf < 1:
                 return False
-        return True
+            if (
+                self.last_reloc_frame_id >= 0
+                and self.frame_id < self.last_reloc_frame_id + int(self.cfg.fps)
+                and self.map.n_kf_active() > int(self.cfg.fps)
+            ):
+                return False
+            # tracked landmarks of the reference keyframe with >= min_obs
+            # observations; right after initialisation every landmark has 2
+            min_obs = 3 if self.map.n_kf_active() > 2 else 2
+            ref_obs = self.map.kf_obs_host()[self.ref_kf]
+            seen = ref_obs[ref_obs >= 0]
+            ref_tracked = int((self.map.lm_obs_count[seen] >= min_obs).sum()) if len(seen) else 0
+            c2 = self.n_inliers < 0.9 * ref_tracked and self.n_inliers > 15
+            long_gap = frames_since_kf >= max(2, int(self.cfg.fps))
+            self._peak_inliers_since_kf = max(self._peak_inliers_since_kf, self.n_inliers)
+            decay = (
+                ref_tracked < self.n_inliers
+                and self.n_inliers < 0.7 * self._peak_inliers_since_kf
+                and frames_since_kf >= 2
+                and self.n_inliers > 15
+            )
+            if not (c2 or decay or (long_gap and self.n_inliers >= 30)):
+                return False
+            if self.async_driver is not None:
+                pending = self.async_driver.pending()
+                if pending >= self.async_driver.QUEUE_MAX or (pending >= 1 and not (c2 or decay)):
+                    return False
+            return True
 
     def _insert_keyframe(self, frame) -> bool:
         """Insert the frame as a keyframe (evicting one when the table is
         full), then run its mapping epoch and a loop-closure attempt, or
         queue them for the worker. Returns whether the epoch ran here (and
         may have moved ``last_pose``)."""
-        if self.map.keyframe_capacity() < 1:
-            # protect the working set: the reference keyframe, its top
-            # covisible neighbours and the earliest keyframe (the gauge)
-            protect = {self.ref_kf}
-            covis = self.map.covisibility()
-            if 0 <= self.ref_kf < covis.shape[0]:
-                nb = np.argsort(-covis[self.ref_kf])[: self.cfg.local_window]
-                protect |= {int(j) for j in nb if covis[self.ref_kf][j] > 0}
-            by_seq = self.map.valid_keyframes_by_seq()
-            if len(by_seq):
-                protect.add(int(by_seq[0]))
-            self.map.evict_keyframe(np.asarray(sorted(protect)))
-        kf_id = self.map.add_keyframe(frame, self.last_pose, self.last_obs, self.frame_id)
+        with self.record.stage("keyframe_insert"):
+            if self.map.keyframe_capacity() < 1:
+                # protect the working set: the reference keyframe, its top
+                # covisible neighbours and the earliest keyframe (the gauge)
+                protect = {self.ref_kf}
+                covis = self.map.covisibility()
+                if 0 <= self.ref_kf < covis.shape[0]:
+                    nb = np.argsort(-covis[self.ref_kf])[: self.cfg.local_window]
+                    protect |= {int(j) for j in nb if covis[self.ref_kf][j] > 0}
+                by_seq = self.map.valid_keyframes_by_seq()
+                if len(by_seq):
+                    protect.add(int(by_seq[0]))
+                self.map.evict_keyframe(np.asarray(sorted(protect)))
+            kf_id = self.map.add_keyframe(frame, self.last_pose, self.last_obs, self.frame_id)
         self.frame_keyframe = True
+        self._frame_kf_seq = int(self.map.kf_seq[kf_id])
         self.new_kf_ids.append(kf_id)
         self.ref_kf = kf_id
         self.last_kf_frame_id = self.frame_id
@@ -789,9 +844,10 @@ class Tracking:
         if self.async_driver is not None:
             self.async_driver.enqueue(self.map, kf_id)
             return False
-        self.mapper.process_new_keyframe(self.map, kf_id)
-        if self.loop_closer is not None and self.loop_closer.attempt(self.map, kf_id, self.mapper):
-            self.velocity = None  # the map's geometry jumped: the motion model is stale
+        with self.record.epoch(self._frame_kf_seq):
+            self.mapper.process_new_keyframe(self.map, kf_id)
+            if self.loop_closer is not None and self.loop_closer.attempt(self.map, kf_id, self.mapper):
+                self.velocity = None  # the map's geometry jumped: the motion model is stale
         # local BA or a loop closure may have moved the keyframe; a copy, not
         # a view of the table
         self.last_pose = self.map.kf_pose[kf_id].clone()
@@ -799,7 +855,7 @@ class Tracking:
 
     # ------------------------------------------------------------------
     def _relocalize(self, frame) -> bool:
-        with record_function("reloc"):
+        with self.record.stage("reloc"):
             ok, Tcw, obs, n_in, kf = relocalize(self, frame)
         if not ok:
             return False

@@ -1,4 +1,4 @@
-"""Device traces and the roofline of one NVIDIA H100.
+"""The roofline of one NVIDIA H100.
 
 The JAX package's ``utils/profiling.py`` reads XLA's cost analysis and a
 TPU v5e's peaks. Here the caller counts the work (PyTorch has no cost
@@ -8,32 +8,12 @@ sheet, at its full 700 W power limit: a card set lower runs slower.
 
 from __future__ import annotations
 
-import contextlib
-import os
-
 # float32 outside the tensor cores, an FMA counted as 2 flops
 FP32_FLOPS_PER_S = 67e12
 # float instructions a second (an FMA, a subtraction, a min or a compare
 # each count once): 132 SMs x 128 lanes x 1.98 GHz
 OPS_PER_S = FP32_FLOPS_PER_S / 2
 BYTES_PER_S = 3.35e12  # HBM3
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """Profile the CPU and CUDA activity of the block with torch.profiler
-    and write a Chrome trace to ``log_dir/trace.json``; yields the
-    profiler (``key_averages()`` for sums by kernel)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def speed_of_light_report(flops: float, bytes_accessed: float, peak_flops: float = FP32_FLOPS_PER_S,
