@@ -9,7 +9,9 @@ one launch over every pyramid level, at the shapes the extractors give it
 (kernel A at the bench frame's 4 levels, a TUM1 frame's 8 and a KITTI
 frame's 4; kernel B at every extractor's tracking and initialisation
 keypoint count over the bench's 4 levels, TUM1's 8 and KITTI's 4), and
-prints its device time beside its bound. It runs the TUM1
+prints its device time beside its bound; the same for the
+pose-optimisation kernel (``csrc/pose_opt.cu``) against its plain version
+at the fused step's sizes, TUM1's 2000 edges and KITTI 00's 4000. It runs the TUM1
 extractor (1000 features, 8 levels, radtan distortion), then drives the fused steady-state tracking
 step over 10 rendered frames of the benchmark scene (640x480, 512 features,
 4 levels, 16384 landmark slots) with the kernels and with the plain path,
@@ -67,7 +69,9 @@ settings (loop closing on, relocalisation when lost):
   circuit: a Sim(3) closure on the revisit leg, global BA over more than
   64 cameras, the probe's gates).
 
-In every system run each kernel must launch once per extraction. It prints
+In every system run each extractor kernel must launch once per
+extraction, and the fused step must launch the pose-optimisation kernel
+twice a fused frame. It prints
 times in microseconds per kernel launch and milliseconds per frame, per
 keyframe epoch and per loop closure by span, each phase's seconds and peak
 device memory, one JSON line describing the kernels (launches summed over
@@ -182,6 +186,12 @@ LOOP_K_MAX, LOOP_L_MAX = 48, 4096
 ANGLE_TOL = 1e-3  # rad, kernel B vs its plain version
 BIT_TOL = 0.005  # fraction of descriptor bits, kernel B vs its plain version
 POSE_TOL = 1e-3  # Tcw entries, kernel path vs plain path
+EXTRACTION_KERNELS = ("fast_score_nms", "orb_patch_features")  # one launch an extraction
+POSE_OPT_TOL = 1e-4  # Tcw entries, the pose-optimisation kernel vs its plain version
+# the pose-optimisation kernel's shapes: the fused step's edges at TUM1's
+# 1000 features (f_max 2000) and KITTI 00's 2000 (f_max 4000)
+POSE_OPT_SHAPES = (("TUM1", 2000, (517.306408, 516.469215, 318.643040, 255.313989, 640, 480)),
+                   ("KITTI 00", 4000, (718.856, 718.856, 607.1928, 185.2157, 1241, 376)))
 # phase_bench: the bench's calls and trials, and each layer bench's R (reps
 # timed against 2R) and trials, cut from the standalone defaults so that the
 # phase takes under two minutes (a pose-graph call takes ~2 s on the card)
@@ -202,25 +212,48 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def reset_launches() -> None:
+def _kernel_entry_points() -> tuple:
     from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
     from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
+    from orbslam_in_practice_tpu_torch.optim.pose_opt import pose_optimization
 
-    fast_score_nms.launches = 0
-    orb_patch_features.launches = 0
+    return fast_score_nms, orb_patch_features, pose_optimization
+
+
+def reset_launches() -> None:
+    for fn in _kernel_entry_points():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from orbslam_in_practice_tpu_torch.ops.cuda_fast import fast_score_nms
-    from orbslam_in_practice_tpu_torch.ops.cuda_patch import orb_patch_features
-
-    return {"fast_score_nms": fast_score_nms.launches, "orb_patch_features": orb_patch_features.launches}
+    return {fn.__name__: fn.launches for fn in _kernel_entry_points()}
 
 
 def check_launches(launches: dict, calls: list, what: str, n_frames: int) -> None:
-    for name, count in launches.items():
+    """Each extractor kernel launched once per extraction."""
+    for name in EXTRACTION_KERNELS:
+        count = launches[name]
         check(count == len(calls) >= n_frames, f"{what} launched {name} {count} times for {len(calls)} extractions "
               f"of {n_frames} frames")
+
+
+def fused_step_launches(step) -> list:
+    """A list that gets, at every call of the fused step ``step``, the
+    pose-optimisation kernel's launches during that call."""
+    from orbslam_in_practice_tpu_torch.optim.pose_opt import pose_optimization
+
+    deltas, before = [], []
+    step.register_forward_pre_hook(lambda *_: before.append(pose_optimization.launches))
+    step.register_forward_hook(lambda *_: deltas.append(pose_optimization.launches - before.pop()))
+    return deltas
+
+
+def check_fused_launches(deltas: list, what: str, n_fused: int) -> None:
+    """The fused step launched the pose-optimisation kernel twice a fused
+    frame (its two pose optimisations), on ``n_fused`` > 0 frames."""
+    check(len(deltas) == n_fused > 0 and set(deltas) == {2},
+          f"{what}: the fused step ran {len(deltas)} times for {n_fused} fused frames, launching the "
+          f"pose-optimisation kernel {sorted(set(deltas))} times a call, not twice")
 
 
 def extraction_counter(*extractors) -> list:
@@ -355,6 +388,51 @@ def phase_tum1(device) -> None:
           "each kernel, level-0 keypoints equal on both paths")
 
 
+def phase_pose_opt(device) -> dict:
+    """The pose-optimisation kernel in one launch a call against its plain
+    version on the card, on ``pose_problem``'s numpy-made problems at the
+    fused step's sizes (POSE_OPT_SHAPES, 30% outliers): Tcw within
+    POSE_OPT_TOL, the inlier counts within one in 1000 edges, the same bits
+    on a second launch; its
+    device us a call beside its bound and the plain version's us."""
+    import torch
+
+    from orbslam_in_practice_tpu_torch.bench_kernels import (
+        events_ms, launch_ms, pose_opt_bound, pose_problem, profiled_ms,
+    )
+    from orbslam_in_practice_tpu_torch.optim.pose_opt import pose_optimization, pose_optimization_plain
+
+    out, err = {}, 0.0
+    for label, n, cam in POSE_OPT_SHAPES:
+        args = pose_problem(n, device, seed=n, cam=cam)
+        before = pose_optimization.launches
+        got = pose_optimization(*args)
+        torch.cuda.synchronize()
+        check(pose_optimization.launches == before + 1, f"the pose-optimisation kernel took more than one launch, {label}")
+        check(all(torch.equal(a, b) for a, b in zip(got, pose_optimization(*args))),
+              f"two launches of the pose-optimisation kernel differ, {label}")
+        want = pose_optimization_plain(*args)
+        diff = float((got[0] - want[0]).abs().max())
+        err = max(err, diff)
+        check(diff < POSE_OPT_TOL, f"the pose-optimisation kernel's Tcw differs from the plain version's by {diff}, {label}")
+        # an edge at the chi2 gate may fall either way (the float64 sums)
+        check(abs(int(got[2]) - int(want[2])) <= n // 1000, f"the pose-optimisation kernel kept {int(got[2])} "
+              f"inliers, the plain version {int(want[2])}, {label}")
+        k = profiled_ms(lambda: pose_optimization(*args), "pose_opt_kernel")
+        ev = launch_ms(lambda: pose_optimization(*args))
+        k = k if math.isfinite(k) else ev  # the profiler saw no kernel: events instead
+        wrap = events_ms(lambda: pose_optimization(*args), 200)
+        p = events_ms(lambda: pose_optimization_plain(*args), 5)
+        b_ms, b_by = pose_opt_bound(n)
+        print(f"pose-optimisation kernel, {label} N={n}: one launch, device {k * 1e3:.2f} us (events around it "
+              f"{ev * 1e3:.2f}), wrapper {wrap * 1e3:.2f} us/call, plain {p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+              f"by {b_by} ({b_ms / k:.0%} of it), |Tcw - plain| {diff:.3g}, {int(got[2])} inliers, "
+              f"{int(got[3])} LM steps accepted")
+        if not out:
+            out = {"ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return {"max_abs_err": err, **out}
+
+
 def run_chain(step, args, images, device):
     """Track frames 1..N, feeding pose and velocity forward. Returns the
     list of (Tcw, ok) per frame, on the host."""
@@ -381,15 +459,16 @@ def phase_step(device) -> dict:
     step, args, images, seq = build_bench_state(cfg, n_images=len(REFERENCE_CENTRE_ERR), device=device)
     plain = FusedSteadyStep(cfg, use_kernels=False).to(device)
     calls = extraction_counter(step.extractor)
+    fused = fused_step_launches(step)
 
     with torch.no_grad():
         reset_launches()
         tracked = run_chain(step, args, images, device)
         launches = read_launches()
         tracked_plain = run_chain(plain, args, images, device)
-    for name, n in launches.items():
-        check(n == len(calls) == len(images), f"the tracking step launched {name} {n} times for {len(calls)} "
-              f"extractions of {len(images)} frames")
+    check_launches(launches, calls, "the tracking step", len(images))
+    check(len(calls) == len(images), f"the tracking step made {len(calls)} extractions for {len(images)} frames")
+    check_fused_launches(fused, "the tracking step", len(images))
 
     errs = []
     for i, ((T, ok), (Tp, okp)) in enumerate(zip(tracked, tracked_plain)):
@@ -471,6 +550,7 @@ def phase_system(device) -> dict:
     check(cfg.enable_loop_closing, "the synthetic configuration has loop closing off")
     system = SlamSystem(cfg, device=device)
     calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+    fused = fused_step_launches(system.tracker.step)
     with torch.no_grad():
         reset_launches()
         out = run_sequence(system, seq, SYSTEM_FRAMES)
@@ -502,7 +582,7 @@ def phase_system(device) -> dict:
           f"system closed {out['loop_closures']} loops, the JAX package {REFERENCE_SYSTEM_CLOSURES}")
     check(closer.n_attempts > 0, "no loop-closure attempt")
     check_launches(launches, calls, "the system", SYSTEM_FRAMES)
-    check(out["fused_frames"] > 0, "no frame went through the fused step")
+    check_fused_launches(fused, "the system", out["fused_frames"])
     return launches, out, system
 
 
@@ -590,6 +670,7 @@ def phase_loop(device) -> dict:
     tracker = system.tracker
     closer = tracker.loop_closer
     calls = extraction_counter(tracker.extractor, tracker.ini_extractor)
+    fused = fused_step_launches(tracker.step)
     gt = seq.gt_centers()
     n_tracked, ate_pre, pre_snapshot, track_s = 0, None, None, 0.0
     with torch.no_grad():
@@ -628,6 +709,7 @@ def phase_loop(device) -> dict:
     check(ate_pre is not None and rmse < 0.6 * ate_pre, f"loop: ATE {rmse} not under 0.6 of {ate_pre}")
     check(rmse < 0.01 * path_len, f"loop: ATE {rmse} not under 1% of the {path_len} path")
     check_launches(launches, calls, "loop", LOOP_FRAMES)
+    check_fused_launches(fused, "loop", tracker.n_fused_frames)
     return launches
 
 
@@ -930,6 +1012,7 @@ def run_regime(device, name: str, on_frame=None):
     seq, cfg, n = regimes.build(name)
     system = SlamSystem(cfg, device=device)
     calls = extraction_counter(system.tracker.extractor, system.tracker.ini_extractor)
+    fused = fused_step_launches(system.tracker.step)
     log = FrameLog()
     gt = seq.gt_centers()[:n]
     verified, events, resets = [], [], [0]
@@ -1011,8 +1094,9 @@ def run_regime(device, name: str, on_frame=None):
               f"{c['ba_points']} landmarks, {c['ba_obs']} observations")
     if ref["ate"] is not None and out["ate_rmse"] > 2.0 * ref["ate"]:
         print(f"{name}: the port's ATE {out['ate_rmse']:.6f} is more than twice the JAX package's {ref['ate']}")
-    print(f"{name}: launches {launches} for {len(calls)} extractions")
+    print(f"{name}: launches {launches} for {len(calls)} extractions, {len(fused)} fused frames")
     check_launches(launches, calls, name, n)
+    check_fused_launches(fused, name, system.tracker.n_fused_frames)
     return out, system, launches, log.records
 
 
@@ -1331,6 +1415,7 @@ def main() -> int:
     for label, levels, n in cases:
         b["max_abs_err"] = max(b["max_abs_err"], phase_patch(device, f"{label}, {n} features", levels, n)["max_abs_err"])
     phase_tum1(device)
+    c = phase_pose_opt(device)
     print(f"kernel checks: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
     runs = [measured("phase_bench", phase_bench, device)]  # timings alone on the card
     # the two production runs take as long as all the other phases: each in
@@ -1369,6 +1454,14 @@ def main() -> int:
             "replaces": "orbslam_in_practice_tpu/ops/pallas_patch.py:172",
             "launches": launches["orb_patch_features"],
             **b,
+        },
+        {
+            "name": "pose_optimization",
+            "route": "cuda",
+            "source": "orbslam_in_practice_tpu_torch/csrc/pose_opt.cu",
+            "replaces": None,
+            "launches": launches["pose_optimization"],
+            **c,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -265,6 +265,67 @@ def patch_work(levels: list, n: int) -> tuple:
     return n * PATCH_OPS_PER_KP, min(pyramid_bytes, n * PATCH_WINDOW_BYTES) + n * PATCH_OUT_BYTES + 256 * 16
 
 
+# the pose-optimisation kernel (csrc/pose_opt.cu): bytes an edge (Xw, uv,
+# inv_sigma2 and valid read, the inlier flag written), and its latency
+# floor: 4 rounds x 10 LM steps x 2 dependent block-wide reductions (the
+# normal equations, then the new error), each at least ~400 cycles of one
+# SM (5 dependent shuffles, two barriers, the warps' partials through
+# shared memory) at the H100's 1.98 GHz boost clock
+POSE_EDGE_BYTES = 12 + 8 + 4 + 1 + 1
+POSE_REDUCTIONS, REDUCTION_S = 80, 400 / 1.98e9
+KITTI_CAM = (718.856, 718.856, 607.1928, 185.2157, 1241, 376)  # fx, fy, cx, cy, width, height
+
+
+def pose_opt_bound(n: int) -> tuple:
+    """(bound ms, "latency" or "bytes") of one pose optimisation of ``n``
+    edges: the larger of its reductions' latency and its bytes over the
+    card's bandwidth (the poses and K besides)."""
+    t_bytes = (n * POSE_EDGE_BYTES + 64 + 64 + 36 + 16) / BYTES_PER_S
+    t_lat = POSE_REDUCTIONS * REDUCTION_S
+    return max(t_bytes, t_lat) * 1e3, "latency" if t_lat >= t_bytes else "bytes"
+
+
+def pose_problem(n: int, device, seed: int = 0, outliers: float = 0.3, *, rot_err: float = 0.01,
+                 trans_err: float = 0.05, n_valid: int | None = None, behind: int = 0, near_zero: int = 0,
+                 cam: tuple = KITTI_CAM) -> tuple:
+    """A pose-only BA problem made with numpy from ``seed``: ``n`` points 5-20
+    m in front of a camera at a drawn pose (``cam``: fx, fy, cx, cy, width,
+    height), each seen at a drawn octave with 1.2^octave px of noise, a
+    share ``outliers`` of them at uniform pixels instead; the first
+    ``behind`` points mirrored behind the camera and the next ``near_zero``
+    at depth 1e-7 from the start pose, which is the true pose moved by about
+    ``rot_err`` rad and ``trans_err`` m; valid but a drawn 5%, or only the
+    first ``n_valid``. Returns pose_optimization's inputs (Tcw0, Xw, uv,
+    inv_sigma2, valid, K) on ``device``."""
+    import numpy as np
+
+    from orbslam_in_practice_tpu_torch.geometry.se3 import exp_se3
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, width, height = cam
+
+    def pose(rho, phi):
+        return exp_se3(torch.from_numpy(np.concatenate([rho, phi]))).numpy()
+
+    T = pose(rng.normal(size=3), rng.normal(size=3) * 0.2)
+    depth = rng.uniform(5.0, 20.0, n)
+    px = np.stack([rng.uniform(0, width, n), rng.uniform(0, height, n)], -1)
+    pc = np.stack([(px[:, 0] - cx) / fx * depth, (px[:, 1] - cy) / fy * depth, depth], -1)
+    pc[:behind] *= -1.0
+    Xw = (pc - T[:3, 3]) @ T[:3, :3]
+    sigma = 1.2 ** rng.integers(0, 8, n)
+    uv = px + rng.normal(size=(n, 2)) * sigma[:, None]
+    wild = rng.random(n) < outliers
+    uv[wild] = np.stack([rng.uniform(0, width, n), rng.uniform(0, height, n)], -1)[wild]
+    T0 = pose(rng.normal(size=3) * trans_err / 3**0.5, rng.normal(size=3) * rot_err / 3**0.5) @ T
+    pc0 = np.stack([rng.uniform(-1, 1, near_zero), rng.uniform(-1, 1, near_zero), np.full(near_zero, 1e-7)], -1)
+    Xw[behind : behind + near_zero] = (pc0 - T0[:3, 3]) @ T0[:3, :3]
+    valid = rng.random(n) < 0.95 if n_valid is None else np.arange(n) < n_valid
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    arrays = (T0, Xw, uv, 1.0 / sigma**2, valid, K)
+    return tuple(torch.from_numpy(a if a.dtype == bool else a.astype(np.float32)).to(device) for a in arrays)
+
+
 def bench_image(device) -> torch.Tensor:
     """Frame 1 of the benchmark scene (640x480)."""
     from orbslam_in_practice_tpu_torch.bench_state import bench_config

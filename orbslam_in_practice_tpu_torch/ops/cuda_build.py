@@ -32,6 +32,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fast_score_nms_levels": (_P, _P, _P, _I, _P),
     "orb_patch_features_levels": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
+    "pose_optimization_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
 }
 
 

@@ -8,7 +8,13 @@ the robust kernel.
 
 The reference's early-exit while-loop becomes a fixed 10 steps whose
 updates are masked once the step has converged: the same result with no
-host synchronisation, so the step can be queued on the card without waits.
+host synchronisation. ``pose_optimization`` runs that torch body,
+``pose_optimization_plain``, for CPU tensors; for CUDA tensors it launches
+one hand-written kernel for the whole call (``ops/cuda_pose_opt.py``,
+``csrc/pose_opt.cu``) or raises. The kernel sums the normal equations and
+the errors in float64 and stops a round at convergence, where the plain
+version masks the steps left; ``pose_optimization.launches`` counts its
+launches. Both return the number of LM steps they accepted.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from orbslam_in_practice_tpu_torch.geometry.se3 import exp_se3, hat
+from orbslam_in_practice_tpu_torch.ops.cuda_pose_opt import pose_optimization_launch
 
 CHI2_MONO = 5.991
 HUBER_DELTA = CHI2_MONO**0.5
@@ -68,6 +75,7 @@ def _lm_round(Tcw, Xw, uv, inv_sigma2, inlier, K, use_huber: bool):
     eye6 = torch.eye(6, dtype=dtype, device=device)
     lam = torch.tensor(1e-3, dtype=dtype, device=device)
     done = torch.tensor(False, device=device)
+    n_accepted = torch.zeros((), dtype=torch.int64, device=device)
     for _ in range(ITERS_PER_ROUND):
         r, J, _ = _residual_jacobian(Tcw, Xw, uv, K)
         chi2 = _chi2(r, inv_sigma2)
@@ -89,11 +97,32 @@ def _lm_round(Tcw, Xw, uv, inv_sigma2, inlier, K, use_huber: bool):
         err_old = torch.sum(_rho(chi2, use_huber) * w_mask)
         accept = err_new < err_old
         active = ~done
+        n_accepted = n_accepted + (active & accept)
         Tcw = torch.where(active & accept, Tcw_new, Tcw)
         lam = torch.where(active, torch.where(accept, lam * 0.5, lam * 4.0), lam)
         # converged: the step's update vanished
         done = done | (torch.sum(delta * delta) < 1e-12)
-    return Tcw
+    return Tcw, n_accepted
+
+
+def pose_optimization_plain(
+    Tcw0: torch.Tensor,
+    Xw: torch.Tensor,
+    uv: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    valid: torch.Tensor,
+    K: torch.Tensor,
+):
+    """The plain PyTorch version of ``pose_optimization``."""
+    inlier = valid
+    Tcw = Tcw0
+    n_accepted = 0
+    for rnd in range(ROUNDS):
+        Tcw, n_round = _lm_round(Tcw, Xw, uv, inv_sigma2, inlier, K, rnd < ROUNDS - 1)
+        n_accepted = n_accepted + n_round
+        r, _, z = _residual_jacobian(Tcw, Xw, uv, K)
+        inlier = valid & (_chi2(r, inv_sigma2) <= CHI2_MONO) & (z > 0)
+    return Tcw, inlier, torch.sum(inlier), n_accepted
 
 
 def pose_optimization(
@@ -108,14 +137,17 @@ def pose_optimization(
 
     Args: Tcw0 (4, 4) initial world->camera pose; Xw (N, 3) fixed points;
       uv (N, 2) undistorted pixel observations; inv_sigma2 (N,) information
-      per observation; valid (N,) bool; K (3, 3).
+      per observation; valid (N,) bool; K (3, 3). On the card: contiguous
+      float32 (``valid`` bool) tensors on one device.
 
-    Returns (Tcw, inlier mask (N,), number of inliers).
+    Returns (Tcw, inlier mask (N,), number of inliers, number of LM steps
+    accepted), the counts as int64 scalars on the inputs' device.
     """
-    inlier = valid
-    Tcw = Tcw0
-    for rnd in range(ROUNDS):
-        Tcw = _lm_round(Tcw, Xw, uv, inv_sigma2, inlier, K, rnd < ROUNDS - 1)
-        r, _, z = _residual_jacobian(Tcw, Xw, uv, K)
-        inlier = valid & (_chi2(r, inv_sigma2) <= CHI2_MONO) & (z > 0)
-    return Tcw, inlier, torch.sum(inlier)
+    if Tcw0.device.type == "cpu":
+        return pose_optimization_plain(Tcw0, Xw, uv, inv_sigma2, valid, K)
+    out = pose_optimization_launch(Tcw0, Xw, uv, inv_sigma2, valid, K)
+    pose_optimization.launches += 1
+    return out
+
+
+pose_optimization.launches = 0

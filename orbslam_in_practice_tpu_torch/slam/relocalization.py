@@ -143,7 +143,7 @@ def relocalize(tracker, frame, sample_idx=None):
         obs = np.full(n_pad, -1, np.int32)
         obs[sel] = lm_ids
         obs_t = torch.from_numpy(obs.astype(np.int64)).to(dev)
-        Tcw, inlier, n_in = pose_optimization(
+        Tcw, inlier, n_in, _ = pose_optimization(
             Tcw0, smap.lm_pos[torch.clamp(obs_t, min=0)], frame.xy, inv_s2, (obs_t >= 0) & frame.valid, tracker.K
         )
         n_in = int(n_in)

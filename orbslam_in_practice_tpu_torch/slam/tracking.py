@@ -55,6 +55,9 @@ from orbslam_in_practice_tpu_torch.slam.relocalization import relocalize
 from orbslam_in_practice_tpu_torch.utils.logging import StageTimer
 
 LOCAL_MAP_MAX = 4096  # padded local-map landmark budget
+# a motion-model pose whose local map keeps fewer inliers than this share of
+# the frame before's is weighed against the reference keyframe's
+WEAK_INLIER_SHARE = 0.25
 INIT_BA_ITERATIONS = 20  # LM iterations of the two-keyframe global BA
 
 
@@ -88,13 +91,14 @@ class FusedSteadyStep(nn.Module):
 
     Its stages are spans of ``record`` (its own unless given). Each call
     leaves ``match_counts`` on the device: the motion-model matches at
-    radius 15 and 30 and the local-map matches, int64 (3,).
+    radius 15 and 30 and the local-map matches, int64 (3,); and
+    ``lm_accepted``: the LM steps each pose optimisation accepted, int64 (2,).
     """
 
     def __init__(self, cfg, use_kernels: bool = True, record: StageTimer | None = None):
         super().__init__()
         self.record = record if record is not None else StageTimer()
-        self.match_counts = None
+        self.match_counts = self.lm_accepted = None
         self.n_levels = cfg.n_levels
         self.extractor = ORBExtractor(
             cfg.n_features, cfg.scale_factor, cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast,
@@ -141,7 +145,7 @@ class FusedSteadyStep(nn.Module):
         n_feat = frame.n_features
         with rec.stage("pose_opt_motion"):
             _, Xw1, has1 = _obs_from_matches(n_feat, m1, mm_ids, lm_pos)
-            Tcw1, _, n1 = pose_optimization(pred, Xw1, frame.xy, inv_s2, has1 & frame.valid, K)
+            Tcw1, _, n1, acc1 = pose_optimization(pred, Xw1, frame.xy, inv_s2, has1 & frame.valid, K)
         ok1 = (n_match1 >= 20) & (n1 >= 10)
         Tcw1 = torch.where(ok1, Tcw1, pred)
 
@@ -156,11 +160,12 @@ class FusedSteadyStep(nn.Module):
             )[0]
         with rec.stage("pose_opt_local"):
             obs2, Xw2, has2 = _obs_from_matches(n_feat, m2, loc_ids, lm_pos)
-            Tcw2, inl2, n2 = pose_optimization(Tcw1, Xw2, frame.xy, inv_s2, has2 & frame.valid, K)
+            Tcw2, inl2, n2, acc2 = pose_optimization(Tcw1, Xw2, frame.xy, inv_s2, has2 & frame.valid, K)
         obs2 = torch.where(inl2, obs2, -1).to(torch.int32)
         ok = ok1 & (n2 >= 30)
         velocity_new = Tcw2 @ torch.linalg.inv_ex(last_pose)[0]
         self.match_counts = torch.stack([n15, torch.sum(m30 >= 0), torch.sum(m2 >= 0)])
+        self.lm_accepted = torch.stack([acc1, acc2])
         return frame, Tcw2, obs2, velocity_new, ok1, ok, n2
 
 
@@ -330,16 +335,14 @@ class Tracking:
             n_fused = self.n_fused_frames
             status, frame, pose = self._track_frame_fused(image)
             launched = self.n_fused_frames > n_fused
-            self.frame_path = "fused_fallback" if status == "stage1" and launched else "fused" if launched else "unfused"
-            if status == "stage2":  # local-map tracking failed: lost
-                self.state = TrackingState.LOST
-                self.velocity = None
-            elif status == "stage1":  # motion model failed: reference keyframe
+            self.frame_path = "fused_fallback" if status != "ok" and launched else "fused" if launched else "unfused"
+            if status != "ok":  # the motion model failed, misled or barely held the local map: reference keyframe
                 if frame is None:
                     with self.record.stage("extract"):
                         frame = self.extractor(self._to_device(image))
+                candidate = pose if status == "weak" else None
                 with self.map.lock:
-                    pose = self.last_pose if self._track_frame(frame, try_motion=False) else None
+                    pose = self.last_pose if self._track_frame(frame, try_motion=False, candidate=candidate) else None
             with self.map.lock:
                 if pose is None:
                     self.trajectory.append((self.frame_id, timestamp, None, -1, None, -1))
@@ -563,11 +566,16 @@ class Tracking:
         """The fused step; returns (status, frame, Tcw numpy or None).
 
         status: 'ok' (tracked), 'stage1' (motion model failed: the caller
-        tries the reference keyframe on the returned frame) or 'stage2'
-        (local map failed: lost, as in the unfused flow). Its flags, inlier
+        tries the reference keyframe on the returned frame), 'stage2'
+        (the local map refuted the motion model's pose: the caller tries
+        the reference keyframe too, as the unfused flow does) or 'weak'
+        (the local map kept under WEAK_INLIER_SHARE of the frame before's
+        inliers: the caller weighs the step's result, returned in place of
+        the pose as (Tcw, observations, inliers), against the reference
+        keyframe's). Its flags, inlier
         count, observations, pose and velocity come back in one
         device-to-host copy, made with the map lock released; the step's
-        match counts ride on it.
+        match counts and accepted LM steps ride on it.
         """
         rec = self.record
         with self.map.lock:
@@ -599,7 +607,8 @@ class Tracking:
             )
             flags = torch.stack([ok1.to(torch.int32), ok.to(torch.int32), n2.to(torch.int32)])
             out = torch.cat([
-                flags, self.step.match_counts.to(torch.int32), obs.to(torch.int32),
+                flags, self.step.match_counts.to(torch.int32), self.step.lm_accepted.to(torch.int32),
+                obs.to(torch.int32),
                 Tcw.contiguous().view(torch.int32).reshape(16), vel.contiguous().view(torch.int32).reshape(16),
             ])
         with rec.stage("step_readback"):
@@ -608,12 +617,15 @@ class Tracking:
         ok1_h, ok_h, n2_h = bool(out[0]), bool(out[1]), int(out[2])
         for name, n in zip(("matches_r15", "matches_r30", "matches_local", "inliers"), (*out[3:6], n2_h)):
             rec.count(name, n)
+        rec.count("lm_accepted", out[6] + out[7])
         if not ok1_h:
             return "stage1", frame, None
         if not ok_h:
             return "stage2", frame, None
-        obs_h = out[6 : 6 + n_feat]
-        Tcw_h = out[6 + n_feat : 22 + n_feat].view(np.float32).reshape(4, 4)
+        obs_h = out[8 : 8 + n_feat]
+        Tcw_h = out[8 + n_feat : 24 + n_feat].view(np.float32).reshape(4, 4)
+        if n2_h < WEAK_INLIER_SHARE * self.n_inliers:
+            return "weak", frame, (Tcw, obs_h, n2_h)
         with self.map.lock:
             self._prev_pose = self.last_pose
             self.last_pose = Tcw
@@ -627,19 +639,41 @@ class Tracking:
                 Tcw_h = self.last_pose  # the epoch may have moved the keyframe
         return "ok", frame, Tcw_h
 
-    def _track_frame(self, frame, try_motion: bool = True) -> bool:
+    def _track_frame(self, frame, try_motion: bool = True, candidate: tuple | None = None) -> bool:
+        """The unfused flow: the motion model, or the reference keyframe when
+        it fails, then the local map. A motion-model pose that the local map
+        refutes, or keeps under WEAK_INLIER_SHARE of the frame before's
+        inliers, is tried again from the reference keyframe, and the result
+        with more local-map inliers is kept: where the angular velocity
+        changes at once (a turn's start or end) the prediction is off by the
+        turn rate, the motion model can pass its gate on a pose drawn towards
+        the prediction, and the local map's radius-4 search then finds few
+        matches, or too few; the next frame's velocity carries the error.
+        ``candidate`` is such a motion-model result from the fused step,
+        (Tcw, observations, inliers). Every gate stays as it is."""
         self._consume_async_events()
         rec = self.record
         ok = False
-        if try_motion and self.velocity is not None:
+        prev_pose, prev_obs, prev_inliers = self.last_pose, self.last_obs, self.n_inliers
+        if candidate is None and try_motion and self.velocity is not None:
             with rec.stage("track_motion_model"):
-                ok = self._track_with_motion_model(frame)
+                motion = self._track_with_motion_model(frame)
+            if motion:
+                with rec.stage("track_local_map"):
+                    ok = self._track_local_map(frame)
+            if ok and self.n_inliers < WEAK_INLIER_SHARE * prev_inliers:
+                candidate, ok = (self.last_pose, self.last_obs, self.n_inliers), False
+            if not ok:
+                self.last_pose, self.last_obs = prev_pose, prev_obs
         if not ok:
             with rec.stage("track_reference_kf"):
                 ok = self._track_reference_keyframe(frame)
-        if ok:
-            with rec.stage("track_local_map"):
-                ok = self._track_local_map(frame)
+            if ok:
+                with rec.stage("track_local_map"):
+                    ok = self._track_local_map(frame)
+            if candidate is not None and not (ok and self.n_inliers > candidate[2]):
+                self.last_pose, self.last_obs, self.n_inliers = candidate
+                self._prev_pose, ok = prev_pose, True
         if not ok:
             self.state = TrackingState.LOST
             self.velocity = None
@@ -670,9 +704,11 @@ class Tracking:
         has = obs_t >= 0
         Xw = self.map.lm_pos[torch.clamp(obs_t, min=0)]
         inv_s2 = self.inv_level_sigma2[torch.clamp(frame.octave.long(), 0, self.cfg.n_levels - 1)]
-        Tcw, inlier, n_in = pose_optimization(Tcw_init, Xw, frame.xy, inv_s2, has & frame.valid, self.K)
+        Tcw, inlier, n_in, n_acc = pose_optimization(Tcw_init, Xw, frame.xy, inv_s2, has & frame.valid, self.K)
         obs[~_host(inlier)] = -1
-        return Tcw, int(n_in)
+        n_in, n_acc = torch.stack([n_in, n_acc]).tolist()
+        self.record.count("lm_accepted", n_acc)
+        return Tcw, n_in
 
     def _pose_opt_from_matches(self, frame, lm_ids_padded, matches, Tcw_init):
         m_h = _host(matches)

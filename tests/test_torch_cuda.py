@@ -27,7 +27,14 @@ same inlier count, s, R, t within 1e-3. Asynchronous mapping on the card:
 the worker queues on the default stream, its epochs all run, the device
 tables equal host truth, one launch of each kernel per extraction.
 Distributed BA in a one-rank NCCL group against the CPU without a group:
-poses and points within 1e-4.
+poses and points within 1e-4. The pose-optimisation kernel against its
+plain version on the card, on numpy-made problems (``pose_problem``): Tcw
+within POSE_TOL (the kernel sums in float64, the plain version in float32),
+the inlier masks equal but at edges within CHI2_NEAR of the chi2 gate (or
+of z = 0) at the plain version's pose, the counts equal where no edge is
+that near; two launches give the same bits, one launch a call. And one
+``kitti00.drive`` session through its first turn on the card: no frame
+after initialisation without a pose, two launches a fused frame.
 """
 
 from types import SimpleNamespace
@@ -37,6 +44,7 @@ import pytest
 import torch
 from torch_parity import SMALL, cuda_device, rendered_frame, wrapped_angle_error  # noqa: F401
 
+from orbslam_in_practice_tpu_torch.bench_kernels import pose_problem
 from orbslam_in_practice_tpu_torch.bench_state import build_bench_state
 from orbslam_in_practice_tpu_torch.config import SlamConfig, load_config
 from orbslam_in_practice_tpu_torch.frontend.orb import ORBExtractor
@@ -60,6 +68,7 @@ from orbslam_in_practice_tpu_torch.geometry.se3 import exp_so3
 from orbslam_in_practice_tpu_torch.geometry.sim3_lie import exp_sim3
 from orbslam_in_practice_tpu_torch.optim.ba import BAProblem, build_point_obs, bundle_adjustment
 from orbslam_in_practice_tpu_torch.optim.pose_graph import optimize_pose_graph
+from orbslam_in_practice_tpu_torch.optim.pose_opt import CHI2_MONO, pose_optimization, pose_optimization_plain
 from orbslam_in_practice_tpu_torch.slam.loop_closing import N_HYP, sim3_ransac
 from orbslam_in_practice_tpu_torch.slam.map import SlamMap
 from orbslam_in_practice_tpu_torch.slam.relocalization import relocalize
@@ -69,6 +78,21 @@ from orbslam_in_practice_tpu_torch.system import SlamSystem
 pytestmark = pytest.mark.cuda
 
 ANGLE_TOL = 1e-3
+POSE_TOL = 1e-4  # Tcw entries, the pose-optimisation kernel against its plain version
+CHI2_NEAR = 1e-3  # edges this near the chi2 gate may fall either way
+# pose_problem's cases: N = 1000, 2000, 4000 at 10-60% outliers; no valid
+# edge; 5 valid edges; points behind the camera and at z ~ 0; a start 0.3
+# rad and 1.5 m off, which the plain version takes with rejected steps
+POSE_CASES = {
+    "n1000_out10": dict(n=1000, outliers=0.1, seed=11),
+    "n2000_out30": dict(n=2000, outliers=0.3, seed=12),
+    "n4000_out60": dict(n=4000, outliers=0.6, seed=13),
+    "all_invalid": dict(n=500, outliers=0.3, seed=14, n_valid=0),
+    "five_valid": dict(n=800, outliers=0.0, seed=15, n_valid=5),
+    "behind_and_z0": dict(n=1000, outliers=0.2, seed=16, behind=20, near_zero=10),
+    "large_error": dict(n=2000, outliers=0.2, seed=17, rot_err=0.3, trans_err=1.5),
+}
+TURN_SEED, TURN_FRAMES = 1999000111, 131  # kitti00.drive: frames 0-130, the first turn at 90-126
 BIT_TOL = 0.005
 # keypoints at the 19 px border of a 96x128 image, and a padding row at (0, 0)
 BORDER_YX = np.array([[19, 19], [96 - 20, 128 - 20], [19, 128 - 20], [96 - 20, 19], [0, 0]], np.int32)
@@ -483,3 +507,83 @@ def test_dist_ba_one_rank_nccl_matches_cpu(cuda_device):  # noqa: F811
         dist.destroy_process_group()
     assert np.abs(got[0] - want[0]).max() < 1e-4
     assert np.abs(got[1] - want[1]).max() < 1e-4
+
+
+def _near_gate(args, Tcw) -> torch.Tensor:
+    """Edges whose chi2 lies within CHI2_NEAR of the gate, or whose depth
+    within 1e-4 of 0, at ``Tcw``, in float64."""
+    _, Xw, uv, inv_s2, _, K = (t.cpu().double() for t in args)
+    T = Tcw.cpu().double()
+    pc = Xw @ T[:3, :3].T + T[:3, 3]
+    proj = pc[:, :2] / pc[:, 2:3] * torch.stack([K[0, 0], K[1, 1]]) + torch.stack([K[0, 2], K[1, 2]])
+    chi2 = ((uv - proj) ** 2).sum(-1) * inv_s2
+    return ((chi2 - CHI2_MONO).abs() < CHI2_NEAR) | (pc[:, 2].abs() < 1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(POSE_CASES))
+def test_pose_opt_kernel_matches_plain(cuda_device, case):  # noqa: F811
+    args = pose_problem(device=cuda_device, **POSE_CASES[case])
+    before = pose_optimization.launches
+    got = pose_optimization(*args)
+    torch.cuda.synchronize()
+    assert pose_optimization.launches == before + 1
+    again = pose_optimization(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    T_k, inl_k, n_k, acc_k = got
+    T_p, inl_p, n_p, _ = pose_optimization_plain(*args)
+    print(f"{case}: |Tcw kernel - plain| {float((T_k - T_p).abs().max()):.3g}, inliers {int(n_k)} / {int(n_p)}, "
+          f"accepted {int(acc_k)}")
+    assert float((T_k - T_p).abs().max()) < POSE_TOL
+    near = _near_gate(args, T_p)
+    assert torch.equal(inl_k.cpu()[~near], inl_p.cpu()[~near])
+    if not bool(near.any()):
+        assert int(n_k) == int(n_p)
+    assert int(n_k) == int(inl_k.sum()) and 0 <= int(acc_k) <= 40
+    if case == "all_invalid":
+        assert torch.equal(T_k, args[0]) and int(n_k) == 0 == int(acc_k)
+
+
+def test_pose_opt_kernel_rejects_bad_input(cuda_device):  # noqa: F811
+    args = pose_problem(64, cuda_device)
+    before = pose_optimization.launches
+    with pytest.raises(ValueError):
+        pose_optimization(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError):
+        pose_optimization(args[0], torch.cat([args[1], args[1]], -1)[:, ::2], *args[2:])
+    with pytest.raises(ValueError):
+        pose_optimization(*args[:5], args[5].cpu())
+    assert pose_optimization.launches == before
+
+
+def test_kitti_drive_turn_on_card(cuda_device):  # noqa: F811
+    """One session of the benchmark's ``kitti00.drive`` cell, frames 0-130,
+    made by the harness's own generator and renderer at TURN_SEED, through
+    SlamSystem on the card: every frame after initialisation gets a pose,
+    and each fused frame launches the pose-optimisation kernel twice and
+    records its accepted LM steps."""
+    from pathlib import Path
+
+    from portbench.bench import load_cell
+    from portbench.scene import TorchRenderer
+    from portbench.traffic import build_sequence
+
+    cell = load_cell(Path(__file__).resolve().parent.parent, "kitti00.drive")
+    settings = cell.config["settings"]
+    renderer = TorchRenderer(build_sequence(cell.mix, settings, TURN_SEED), cuda_device)
+    system = SlamSystem(SlamConfig(**settings), device=cuda_device)
+    first_pose, lost, fused, launches = None, [], [], set()
+    with torch.no_grad():
+        for i in range(TURN_FRAMES):
+            before = pose_optimization.launches
+            pose = system.track_monocular(renderer.render(i), i / settings["fps"])
+            if first_pose is None and pose is not None:
+                first_pose = i
+            if first_pose is not None and pose is None:
+                lost.append(i)
+            if system.tracker.frame_path == "fused":
+                fused.append(i)
+                launches.add(pose_optimization.launches - before)
+                assert "lm_accepted" in system.tracker.frame_record["counts"]
+    system.shutdown()
+    assert first_pose is not None and first_pose < 20 and not lost, (first_pose, lost)
+    assert len(fused) > TURN_FRAMES // 3 and launches == {2}

@@ -102,7 +102,7 @@ def test_pose_optimization_matches_jax(scene):
     inputs = (scene["pred"], Xw, np.array(jframe.xy), scene["inv_s2"].astype(np.float32),
               has & np.asarray(jframe.valid), scene["K"])
     T_j, inl_j, n_j = jax_pose_opt(*map(jnp.asarray, inputs))
-    T_t, inl_t, n_t = pose_optimization(*map(torch.from_numpy, inputs))
+    T_t, inl_t, n_t, _ = pose_optimization(*map(torch.from_numpy, inputs))
     assert np.abs(T_t.numpy() - np.asarray(T_j)).max() < 1e-5
     assert np.array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert int(n_t) == int(n_j) >= 10
